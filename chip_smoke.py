@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`sela_tpu_torch`) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+1. device  — require CUDA, print the card's name, count and power limit;
+2. build   — build both CUDA kernel libraries and the native bit I/O library
+             from this checkout's sources, all compilers started together;
+             print the build seconds and what `-Xptxas -v` says;
+3. K1      — the LPC kernel (csrc/lpc.cu) against its plain PyTorch version
+             on the card, at 1,024 and 7,752 rows, exactly;
+4. IIR     — the IIR kernel (csrc/iir.cu) against its plain version on the
+             card at [1,024, 2,048]: (a) residues rendered by the oracle from
+             synthetic music, orders 0..32 mixed in every block; (b) uniform
+             random int32 residues, whose synthesis wraps (the K7 contract);
+5. e2e     — encode with the port's oracle and decode with
+             `sela_tpu_torch.codec.decoder.decode_sela` on the card: a 3-minute
+             16-bit/44.1 kHz stereo track (the main path), a 30 s 24-bit/96 kHz
+             clip and a 10 s 32-bit clip holding INT32_MIN and INT32_MAX;
+             the PCM must equal the input and both kernels must have run;
+6. the `kernels` JSON line, then the card's name and power limit, then the
+   last line `{"ok": true, "device": {...}}`.
+
+Every comparison is exact (max_abs_err 0): all stages are normative integer
+code. Kernel times are CUDA-event times of many back-to-back launches queued
+behind a device-side sleep, so host launch overhead is not in them.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67
+# TFLOP/s of float32 outside the tensor cores with an FMA counted as two,
+# i.e. 33.5e12 lane-instructions a second. Integer work is counted in int32
+# lane-instructions at that rate; a 32x32->64 multiply-add into a 64-bit sum
+# counts 4 (the wide product 2, the carried 64-bit add 2).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+MAC64_OPS = 4
+LEVINSON_STEP_OPS = MAC64_OPS + 6   # + round, shift, subtract, clamp (64-bit)
+IIR_SAMPLE_OPS = 4                  # round, shift, low-32 add of e per sample
+
+FRAME = 2048
+ROWS_MAIN = 1024    # rows of one default 512-frame stereo chunk
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ------------------------------------------------------------ test signals --
+
+def make_track(seconds: float, rate: int, bits: int, seed: int) -> list[np.ndarray]:
+    """Synthetic stereo music at `bits` from a seed.
+
+    Notes of 0.5-2 s: a fundamental with vibrato and 1-10 harmonics under an
+    attack/decay envelope at a per-note level, plus AR noise of a per-note
+    level and colour (0 to 16 resonances). The right channel mixes the left's
+    music with an independent voice at a per-note weight, so both mid/side
+    and direct frames occur, and the mix of tonal and noisy notes spreads the
+    chosen LPC orders from 0 to 32."""
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * rate))
+    bounds = [0]
+    while bounds[-1] < n:
+        bounds.append(bounds[-1] + int(rng.uniform(0.5, 2.0) * rate))
+    bounds[-1] = n
+    idx = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))
+    k = len(bounds) - 1
+    t_note = (np.arange(n) - np.asarray(bounds[:-1])[idx]) / rate
+    t = np.arange(n) / rate
+
+    def voice(f0, n_harm, decay):
+        vib = 1.0 + 0.006 * np.sin(2 * np.pi * 5.5 * t)
+        phase = 2 * np.pi * np.cumsum(f0[idx] * vib) / rate
+        env = (1 - np.exp(-t_note * 60.0)) * np.exp(-t_note * decay[idx])
+        out = np.zeros(n)
+        for h in range(1, 11):
+            amp = np.where(h <= n_harm[idx], 0.7 ** (h - 1), 0.0)
+            out += amp * np.sin(h * phase + h)
+        return out * env
+
+    def pick_f0():
+        return 55.0 * 2 ** (rng.integers(0, 48, k) / 12)
+
+    music = voice(pick_f0(), rng.integers(1, 11, k), rng.uniform(0.2, 3.0, k))
+    other = voice(pick_f0(), rng.integers(1, 11, k), rng.uniform(0.2, 3.0, k))
+    gain = 10.0 ** rng.uniform(-2.0, 0.0, k)          # music level per note
+    level = 10.0 ** rng.uniform(-3.5, -0.5, k)        # noise level per note
+    n_res = rng.choice([0, 1, 2, 4, 8, 12, 16], k)    # noise resonances
+    bare = rng.random(k) < 0.1                        # white noise alone
+    gain[bare], n_res[bare] = 0.0, 0
+
+    def noise():
+        out = rng.standard_normal(n)
+        for j in range(k):   # AR(2 n_res) noise: resonances near the unit circle
+            a, b = bounds[j], bounds[j + 1]
+            poles = rng.uniform(0.95, 0.999, n_res[j]) * np.exp(
+                1j * rng.uniform(0.05, 3.0, n_res[j]))
+            den = np.real(np.poly(np.concatenate([poles, poles.conj()])))
+            seg = lfilter([1.0], den, out[a:b])
+            out[a:b] = seg / max(seg.std(), 1e-9) * level[j]
+        return out
+
+    w = rng.choice([0.0, 0.05, 0.4, 1.0], k)          # right = left .. other
+    g = gain[idx]
+    left = 0.35 * g * music + noise()
+    right = 0.35 * g * ((1 - w[idx]) * music + w[idx] * other) + noise()
+    full = (1 << (bits - 1)) - 1
+    chans = []
+    for x in (left, right):
+        x = np.round(x / max(np.abs(x).max(), 1e-9) * 0.8 * full)
+        chans.append(np.clip(x, -full - 1, full).astype(np.int32))
+    return chans
+
+
+# ---------------------------------------------------------------- timing --
+
+def time_kernel(torch, fn, iters: int) -> float:
+    """Device ms per call of `fn`: `iters` calls queued behind a device-side
+    sleep, so the launches run back to back whatever the host overhead."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms at 2 GHz: covers the enqueue
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_plain(torch, fn, iters: int) -> float:
+    """ms per call of a plain PyTorch version, host dispatch included (it is
+    many small operations; that is its real cost)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def lpc_bound(order: np.ndarray) -> tuple[float, str]:
+    """K1 on these rows: reads q and order, writes c; the Levinson steps
+    that the rows' orders need."""
+    B = len(order)
+    o = order.astype(np.int64)
+    steps = (o * (o - 1) // 2).sum()   # sum over m <= order of (m - 1)
+    return bound_ms(B * (32 * 4 + 4 + 32 * 4), steps * LEVINSON_STEP_OPS)
+
+
+def iir_bound(order: np.ndarray, n: int) -> tuple[float, str]:
+    """IIR on these rows: reads e and c, writes x; order taps a sample."""
+    B = len(order)
+    ops = (order.astype(np.int64).sum() * MAC64_OPS + B * IIR_SAMPLE_OPS) * n
+    return bound_ms(B * (n * 4 + 32 * 4 + n * 4), ops)
+
+
+def max_abs_err(a, b) -> int:
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+# ---------------------------------------------------------------- phases --
+
+def phase_device(torch) -> tuple[str, str]:
+    log("== phase 1: device")
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    log(f"device: {kind} (count {count}); torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    log(smi)
+    return kind, smi
+
+
+def phase_build(k_lpc, k_iir, bitio, build_log) -> None:
+    log("== phase 2: build")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    jobs = {"sela_lpc": k_lpc.load, "sela_iir": k_iir.load,
+            "selabitio": bitio.load}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
+        secs = {name: f.result() for name, f in futs.items()}
+    log(f"built in {time.perf_counter() - t0:.1f} s (in parallel): "
+        + ", ".join(f"lib{k}.so {v:.1f} s" for k, v in secs.items()))
+    for name in ("sela_lpc", "sela_iir"):   # -Xptxas -v: registers, spills
+        for line in build_log(name).splitlines():
+            if line.strip():
+                log(f"  {name}: {line.strip()}")
+
+
+def phase_lpc(torch, ops_coeffs) -> dict:
+    log("== phase 3: K1 (lpc_from_q) against its plain version")
+    rng = np.random.default_rng(1)
+    dev = torch.device("cuda")
+    result = {}
+    for B in (ROWS_MAIN, 7752):
+        order = rng.permutation(np.arange(B) % 33).astype(np.int32)
+        q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+        q.reshape(-1)[: 128 * 4] = np.tile(np.arange(-64, 64), 4)  # every q
+        qd = torch.from_numpy(q).to(dev)
+        od = torch.from_numpy(order).to(dev)
+        got = ops_coeffs.lpc_from_q(qd, od)
+        want = ops_coeffs.lpc_from_q_reference(qd, od)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        exact = bool(torch.equal(got, want))
+        ms = time_kernel(torch, lambda: ops_coeffs.lpc_from_q(qd, od), 200)
+        plain = time_plain(torch,
+                           lambda: ops_coeffs.lpc_from_q_reference(qd, od), 5)
+        bms, by = lpc_bound(order)
+        log(f"B={B}: exact={exact} max_abs_err={err} kernel {ms:.5f} ms, "
+            f"plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+        check(exact, f"K1 disagrees with its plain version at B={B}")
+        result[B] = dict(max_abs_err=err, exact=exact, ms=ms, plain_ms=plain,
+                         bound_ms=bms, bound_by=by)
+    return result[ROWS_MAIN]
+
+
+def oracle_rows(ref_lpc, chans: list[np.ndarray], B: int, rng):
+    """B frames of real-ish audio rendered by the oracle: analysis at order
+    32, then each row cut to its own order (r mod 33, so every block mixes
+    orders 0..32). Returns (x, e, q, order) with the oracle's fallback
+    (order 0 when a residue would exceed the limit) applied."""
+    n_frames = len(chans[0]) // FRAME
+    starts = rng.choice(n_frames, B // 2, replace=False) * FRAME
+    xs, es, qs, orders = [], [], [], []
+    for r in range(B):
+        x = chans[r % 2][starts[r // 2] : starts[r // 2] + FRAME]
+        gamma, _ = ref_lpc.levinson_reflection(ref_lpc.autocorr(x, 32), 32)
+        order, q, e = ref_lpc.render_channel(
+            x, r % 33, ref_lpc.quantize_reflection(gamma))
+        qrow = np.zeros(32, np.int32)
+        qrow[:order] = q
+        xs.append(x), es.append(e), qs.append(qrow), orders.append(order)
+    return (np.stack(xs), np.stack(es), np.stack(qs),
+            np.asarray(orders, np.int32))
+
+
+def phase_iir(torch, ops_coeffs, filters, k_iir, ref_lpc, chans) -> dict:
+    log("== phase 4: IIR kernel against its plain version")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    x, e, q, order = oracle_rows(ref_lpc, chans, ROWS_MAIN, rng)
+    log(f"(a) oracle residues: orders {np.bincount(order, minlength=33).tolist()}")
+    c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
+                                        torch.from_numpy(order))
+    ed, cd = torch.from_numpy(e).to(dev), c.to(dev)
+    got = k_iir.iir_synthesize(ed, cd)
+    want = filters.iir_synthesize_reference(ed, cd)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    exact = bool(torch.equal(got, want))
+    inverts = bool(np.array_equal(got.cpu().numpy(), x))
+    ms = time_kernel(torch, lambda: k_iir.iir_synthesize(ed, cd), 20)
+    plain = time_plain(torch,
+                       lambda: filters.iir_synthesize_reference(ed, cd), 1)
+    bms, by = iir_bound(order, FRAME)
+    log(f"(a) [{ROWS_MAIN}, {FRAME}]: exact={exact} max_abs_err={err} "
+        f"inverts_fir={inverts} kernel {ms:.4f} ms, plain {plain:.1f} ms, "
+        f"bound {bms:.5f} ms ({by})")
+    check(exact and inverts, "IIR kernel disagrees on oracle residues")
+
+    # (b) uniform int32 residues under valid coefficients: x wraps mod 2^32
+    order_b = rng.permutation(np.arange(ROWS_MAIN) % 33).astype(np.int32)
+    q_b = rng.integers(-64, 64, (ROWS_MAIN, 32)).astype(np.int32)
+    c_b = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q_b),
+                                          torch.from_numpy(order_b)).to(dev)
+    e_b = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (ROWS_MAIN, FRAME),
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    got_b = k_iir.iir_synthesize(e_b, c_b)
+    want_b = filters.iir_synthesize_reference(e_b, c_b)
+    torch.cuda.synchronize()
+    err_b = max_abs_err(got_b, want_b)
+    exact_b = bool(torch.equal(got_b, want_b))
+    log(f"(b) random int32 residues: exact={exact_b} max_abs_err={err_b}")
+    check(exact_b, "IIR kernel disagrees on wrapping int32 residues")
+
+    # (c) one thread a row: time against the row count (B = 1 is one row's
+    # serial chain; 16,896 rows fill 132 SMs with 128 threads each)
+    for B in (1, 128, ROWS_MAIN, 4096, 16896):
+        qs = torch.from_numpy(rng.integers(-64, 64, (B, 32)).astype(np.int32))
+        ords = torch.from_numpy(np.full(B, 32, np.int32))
+        cs = ops_coeffs.lpc_from_q_reference(qs, ords).to(dev)
+        es = torch.from_numpy(rng.integers(-4096, 4096, (B, FRAME))
+                              .astype(np.int32)).to(dev)
+        qs, ords = qs.to(dev), ords.to(dev)
+        t_iir = time_kernel(torch, lambda: k_iir.iir_synthesize(es, cs), 10)
+        t_lpc = time_kernel(torch, lambda: ops_coeffs.lpc_from_q(qs, ords), 50)
+        log(f"(c) rows {B}: iir {t_iir:.4f} ms "
+            f"({t_iir * 1e6 / (B * FRAME):.3f} ns a row-sample), "
+            f"lpc (order 32) {t_lpc:.5f} ms")
+    return dict(max_abs_err=max(err, err_b), exact=exact and exact_b, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def device_profile(torch, fn) -> tuple[float, dict]:
+    """One run of fn under torch.profiler (CUPTI): the device's busy ms, and
+    busy ms by kernel or copy name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+            by_name[ev.key] = ev.self_device_time_total / 1e3
+    return sum(by_name.values()), by_name
+
+
+def phase_e2e(torch, decoder, ref_codec, WavData, Metrics, bitio, container,
+              k_lpc, k_iir, name, chans, rate, bits, warm=False) -> dict:
+    from sela_tpu_torch.format import FRAME_SIZE, SF_MID, SYNC
+
+    w = WavData(rate, bits, chans)
+    t0 = time.perf_counter()
+    buf = ref_codec.encode_wav(w)
+    enc_s = time.perf_counter() - t0
+    if warm:   # first use of pinned buffers and the allocator, not counted
+        decoder.decode_sela(buf, device="cuda")
+    m = Metrics()
+    k_lpc.launches = 0
+    k_iir.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = decoder.decode_sela(buf, device="cuda", metrics=m)
+    wall = time.perf_counter() - t0
+    launches = {"lpc": k_lpc.launches, "iir": k_iir.launches}
+    identical = all(np.array_equal(a, b) for a, b in zip(out.channels, chans))
+    h = container.parse_header(buf)
+    sf, _ = bitio.scan_frames(buf, container.HEADER_SIZE, h.num_frames,
+                              h.channels, SYNC, FRAME_SIZE)
+    pcm_mb = w.n_samples * w.n_channels * bits / 8 / 1e6
+    ms_share = float(np.mean(sf["sftype"] == SF_MID)) * 2 if h.channels == 2 else 0.0
+    hist = np.bincount(sf["order"], minlength=33).tolist()
+    stages = {k: round(v, 4) for k, v in m.stage_s.items()}
+    log(f"{name}: {w.n_samples} samples x {w.n_channels} ch, {bits}-bit "
+        f"{rate} Hz, {h.num_frames} frames; oracle encode {enc_s:.1f} s, "
+        f"ratio {len(buf) / (pcm_mb * 1e6):.4f}")
+    log(f"  decode on the card {wall:.3f} s = {pcm_mb / wall:.1f} PCM MB/s; "
+        f"stages {stages}; launches {launches}; identical={identical}")
+    log(f"  mid/side frame share {ms_share:.3f}; order histogram {hist}")
+    check(identical, f"{name}: decoded PCM differs from the input")
+    check(launches["lpc"] > 0 and launches["iir"] > 0,
+          f"{name}: a kernel was not launched on the decode path {launches}")
+    if warm:   # a second, profiled run: where the device time goes
+        busy, by_name = device_profile(
+            torch, lambda: decoder.decode_sela(buf, device="cuda"))
+        if busy > 0:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            log(f"  profiled run: device busy {busy:.3f} ms = idle share "
+                f"{1 - busy / (wall * 1e3):.4f} of the timed run's wall; top: "
+                + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+        else:
+            log("  profiled run: the profiler saw no device time "
+                "(device busy time not measured)")
+    return dict(name=name, launches=launches, wall_s=wall,
+                pcm_mb_per_s=pcm_mb / wall, stages=stages, ms_share=ms_share)
+
+
+def main() -> int:
+    import torch
+
+    kind, smi = phase_device(torch)
+    sys.path.insert(0, HERE)
+    import sela_tpu_torch
+
+    pkg = os.path.dirname(os.path.abspath(sela_tpu_torch.__file__))
+    check(pkg == os.path.join(HERE, "sela_tpu_torch"),
+          f"sela_tpu_torch imported from {pkg}, not from this checkout")
+    from sela_tpu_torch.codec import decoder
+    from sela_tpu_torch.kernels import coeffs as k_lpc
+    from sela_tpu_torch.kernels import iir as k_iir
+    from sela_tpu_torch.native import bitio
+    from sela_tpu_torch.ops import coeffs as ops_coeffs
+    from sela_tpu_torch.ops import filters
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref import container
+    from sela_tpu_torch.ref import lpc as ref_lpc
+    from sela_tpu_torch.ref.wav import WavData
+    from sela_tpu_torch.utils.build import build_log
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    phase_build(k_lpc, k_iir, bitio, build_log)
+    lpc = phase_lpc(torch, ops_coeffs)
+
+    t0 = time.perf_counter()
+    cd = make_track(180.0, 44100, 16, seed=0)
+    log(f"(3-minute track made in {time.perf_counter() - t0:.1f} s)")
+    iir = phase_iir(torch, ops_coeffs, filters, k_iir, ref_lpc, cd)
+
+    log("== phase 5: end to end")
+    e2e_args = (torch, decoder, ref_codec, WavData, Metrics, bitio, container,
+                k_lpc, k_iir)
+    main_run = phase_e2e(*e2e_args, "cd_180s", cd, 44100, 16, warm=True)
+    phase_e2e(*e2e_args, "hires_30s", make_track(30.0, 96000, 24, seed=1),
+              96000, 24)
+    c32 = make_track(10.0, 48000, 32, seed=2)
+    c32[0][1000], c32[0][5000], c32[1][77_777] = -(1 << 31), (1 << 31) - 1, -(1 << 31)
+    phase_e2e(*e2e_args, "int32_10s", c32, 48000, 32)
+
+    kernels = [
+        dict(name="lpc_from_q", route="cuda",
+             source="sela_tpu_torch/csrc/lpc.cu",
+             replaces="sela_tpu/kernels/coeffs.py:60",
+             launches=main_run["launches"]["lpc"], max_abs_err=lpc["max_abs_err"],
+             exact=lpc["exact"], ms=lpc["ms"], plain_ms=lpc["plain_ms"],
+             bound_ms=lpc["bound_ms"], bound_by=lpc["bound_by"],
+             library_ms=None),
+        dict(name="iir_synthesize", route="cuda",
+             source="sela_tpu_torch/csrc/iir.cu",
+             replaces="sela_tpu/kernels/iir.py:135 (K2), "
+                      "sela_tpu/kernels/iir.py:40 (K7)",
+             launches=main_run["launches"]["iir"], max_abs_err=iir["max_abs_err"],
+             exact=iir["exact"], ms=iir["ms"], plain_ms=iir["plain_ms"],
+             bound_ms=iir["bound_ms"], bound_by=iir["bound_by"],
+             library_ms=None),
+    ]
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
