@@ -6,26 +6,44 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — require CUDA, print the card's name, count and power limit;
-2. build   — build both CUDA kernel libraries and the native bit I/O library
-             from this checkout's sources, all compilers started together;
-             print the build seconds and what `-Xptxas -v` says;
+2. build   — build the six CUDA kernel libraries and the native bit I/O
+             library from this checkout's sources, all compilers started
+             together; print the build seconds and what `-Xptxas -v` says;
 3. K1      — the LPC kernel (csrc/lpc.cu) against its plain PyTorch version
              on the card, at 1,024 and 7,752 rows, exactly;
 4. IIR     — the IIR kernel (csrc/iir.cu) against its plain version on the
              card at [1,024, 2,048]: (a) residues rendered by the oracle from
              synthetic music, orders 0..32 mixed in every block; (b) uniform
              random int32 residues, whose synthesis wraps (the K7 contract);
-5. e2e     — encode with the port's oracle and decode with
+5. K5, K6  — FIR + Rice bit counts (csrc/fir_rice.cu) at [1,024, 2,048] on
+             the CD track's frames (orders 0..32, tails, rows that trip the
+             residue guard and rows on its edges) and the Rice k selection
+             (csrc/ksel.cu) at 2,048 rows (K5's counts, random and
+             escape-forcing counts; k_max 30, 7, 0), exactly;
+6. K3, K4  — autocorrelation (csrc/autocorr.cu) and Levinson / order
+             selection (csrc/levinson.cu) at the main path's [2,048, 2,048]
+             candidate rows of the CD track: K3 within 1e-5 of r[0] a row
+             (and the conv1d yardstick with it), K4 given K3's r identical
+             in order and q on every row;
+7. decode  — encode with the port's oracle and decode with
              `sela_tpu_torch.codec.decoder.decode_sela` on the card: a 3-minute
-             16-bit/44.1 kHz stereo track (the main path), a 30 s 24-bit/96 kHz
-             clip and a 10 s 32-bit clip holding INT32_MIN and INT32_MAX;
-             the PCM must equal the input and both kernels must have run;
-6. the `kernels` JSON line, then the card's name and power limit, then the
+             16-bit/44.1 kHz stereo track (the decode main path), a 30 s
+             24-bit/96 kHz clip and a 10 s 32-bit clip holding INT32_MIN and
+             INT32_MAX; the PCM must equal the input and K1 and the IIR kernel
+             must have run;
+8. encode  — `sela_tpu_torch.codec.encoder.encode_wav` on the card (the
+             encode main path) on the same three clips: each stream decodes
+             on the card to the input (the 32-bit one through the oracle as
+             well), K1, K3, K4, K5 and K6 must have run, and the CD stream may
+             be at most 1% larger than the oracle's; one profiled encode
+             gives the device busy time;
+9. the `kernels` JSON line, then the card's name and power limit, then the
    last line `{"ok": true, "device": {...}}`.
 
-Every comparison is exact (max_abs_err 0): all stages are normative integer
-code. Kernel times are CUDA-event times of many back-to-back launches queued
-behind a device-side sleep, so host launch overhead is not in them.
+Comparisons of the normative integer kernels are exact (max_abs_err 0); K3's
+tolerance and K4's rule are stated in phase 6. Kernel times are CUDA-event
+times of many back-to-back launches queued behind a device-side sleep, so
+host launch overhead is not in them.
 """
 from __future__ import annotations
 
@@ -47,12 +65,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # counts 4 (the wide product 2, the carried 64-bit add 2).
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
+FLOPS_PER_S = 67e12                 # float32, an FMA counted as two
 MAC64_OPS = 4
 LEVINSON_STEP_OPS = MAC64_OPS + 6   # + round, shift, subtract, clamp (64-bit)
 IIR_SAMPLE_OPS = 4                  # round, shift, low-32 add of e per sample
+FIR_SAMPLE_OPS = 10                 # round, shift, subtract (64-bit), guard,
+                                    # select, zigzag per valid sample
+BITCOUNT_OPS = 2                    # shift-and + add per bit a sample counts
+KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
 
 FRAME = 2048
 ROWS_MAIN = 1024    # rows of one default 512-frame stereo chunk
+CAND_MAIN = 2048    # its L, R, mid and side candidate rows (K3, K4)
 
 
 def log(msg: str = "") -> None:
@@ -167,9 +191,10 @@ def time_plain(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             rate: float = INT_OPS_PER_S) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / INT_OPS_PER_S * 1e3
+    to = ops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -187,6 +212,42 @@ def iir_bound(order: np.ndarray, n: int) -> tuple[float, str]:
     B = len(order)
     ops = (order.astype(np.int64).sum() * MAC64_OPS + B * IIR_SAMPLE_OPS) * n
     return bound_ms(B * (n * 4 + 32 * 4 + n * 4), ops)
+
+
+def fir_rice_bound(c: np.ndarray, nv: np.ndarray, e: np.ndarray):
+    """K5 on these rows: reads x, c, order and n_valid, writes e, eff_order
+    and counts. Per valid sample: a 64-bit multiply-add per tap below the
+    row's highest nonzero coefficient, the epilogue, and a shift-and-add
+    per bit up to the row's widest zigzag code (higher counts are zero)."""
+    B, N = e.shape
+    nz = c != 0
+    taps = np.where(nz.any(axis=1), 32 - np.argmax(nz[:, ::-1], axis=1), 0)
+    valid = np.clip(nv.astype(np.int64), 0, N)
+    e64 = e.astype(np.int64)
+    u = np.where(np.arange(N)[None, :] < valid[:, None],
+                 (e64 << 1) ^ (e64 >> 63), 0)
+    width = np.array([int(m).bit_length() for m in u.max(axis=1)])
+    ops = (valid * (MAC64_OPS * taps + FIR_SAMPLE_OPS
+                    + BITCOUNT_OPS * width)).sum()
+    return bound_ms(B * (2 * N * 4 + 2 * 32 * 4 + 3 * 4), ops)
+
+
+def ksel_bound(B: int) -> tuple[float, str]:
+    """K6: reads counts and n, writes k and bits; 31 recurrence steps."""
+    return bound_ms(B * (32 * 4 + 3 * 4), B * 31 * KSEL_STEP_OPS)
+
+
+def autocorr_bound(B: int, N: int) -> tuple[float, str]:
+    """K3: reads x, writes r; 33 float multiply-adds a sample."""
+    return bound_ms(B * (N * 4 + 33 * 4), B * N * 33 * 2, FLOPS_PER_S)
+
+
+def levinson_bound(B: int) -> tuple[float, str]:
+    """K4: reads r and n, writes order, q and cost; per row the 32 steps'
+    dot products and updates (4(m-1) + 12 flops at step m) and 33 costs,
+    a logarithm counted as 20 flops."""
+    flops = sum(4 * (m - 1) + 12 for m in range(1, 33)) + 33 * (20 + 6)
+    return bound_ms(B * (33 * 4 + 4 + 4 + 32 * 4 + 4), B * flops, FLOPS_PER_S)
 
 
 def max_abs_err(a, b) -> int:
@@ -210,7 +271,7 @@ def phase_device(torch) -> tuple[str, str]:
     return kind, smi
 
 
-def phase_build(k_lpc, k_iir, bitio, build_log) -> None:
+def phase_build(k_lpc, k_iir, k_enc, bitio, build_log) -> None:
     log("== phase 2: build")
 
     def timed(fn):
@@ -221,12 +282,16 @@ def phase_build(k_lpc, k_iir, bitio, build_log) -> None:
     t0 = time.perf_counter()
     jobs = {"sela_lpc": k_lpc.load, "sela_iir": k_iir.load,
             "selabitio": bitio.load}
+    for kernel, spec in k_enc.KERNELS.items():
+        jobs[spec[0]] = (lambda kernel=kernel: k_enc.load(kernel))
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {name: ex.submit(timed, fn) for name, fn in jobs.items()}
         secs = {name: f.result() for name, f in futs.items()}
     log(f"built in {time.perf_counter() - t0:.1f} s (in parallel): "
         + ", ".join(f"lib{k}.so {v:.1f} s" for k, v in secs.items()))
-    for name in ("sela_lpc", "sela_iir"):   # -Xptxas -v: registers, spills
+    for name in jobs:   # -Xptxas -v: registers, shared memory, spills
+        if name == "selabitio":
+            continue
         for line in build_log(name).splitlines():
             if line.strip():
                 log(f"  {name}: {line.strip()}")
@@ -280,11 +345,10 @@ def oracle_rows(ref_lpc, chans: list[np.ndarray], B: int, rng):
             np.asarray(orders, np.int32))
 
 
-def phase_iir(torch, ops_coeffs, filters, k_iir, ref_lpc, chans) -> dict:
+def phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng) -> dict:
     log("== phase 4: IIR kernel against its plain version")
     dev = torch.device("cuda")
-    rng = np.random.default_rng(2)
-    x, e, q, order = oracle_rows(ref_lpc, chans, ROWS_MAIN, rng)
+    x, e, q, order = rows
     log(f"(a) oracle residues: orders {np.bincount(order, minlength=33).tolist()}")
     c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
                                         torch.from_numpy(order))
@@ -335,6 +399,143 @@ def phase_iir(torch, ops_coeffs, filters, k_iir, ref_lpc, chans) -> dict:
             f"lpc (order 32) {t_lpc:.5f} ms")
     return dict(max_abs_err=max(err, err_b), exact=exact and exact_b, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
+    log("== phase 5: K5 (fir_rice) and K6 (ksel) against their plain versions")
+    dev = torch.device("cuda")
+    x, _, q, order = (a.copy() for a in rows)
+    order = order.astype(np.int32)
+    # guard rows: full-scale int32 noise under q = 63 at order 32 (trips);
+    # c = 0 with e = x on the guard's edges: -2^30 trips, 2^30 - 1 passes
+    x[0:4] = rng.integers(-(1 << 31), 1 << 31, (4, FRAME), dtype=np.int64)
+    q[0:4], order[0:4] = 63, 32
+    c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
+                                        torch.from_numpy(order)).numpy()
+    c[4:6], order[4:6] = 0, 7
+    x[4], x[5] = -(1 << 30), (1 << 30) - 1
+    nv = np.full(ROWS_MAIN, FRAME, np.int32)
+    for j, tail in enumerate((2000, 1, 0)):       # tails every 64 rows
+        nv[(np.arange(ROWS_MAIN) % 64) == 9 + j] = tail
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (x, c, order, nv)]
+    got = filters.fir_rice(*args)
+    want = filters.fir_rice_reference(*args)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    exact = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    eff = got[1].cpu().numpy()
+    guard = (eff[0], eff[4], eff[5]) == (0, 0, 7)
+    ms = time_kernel(torch, lambda: filters.fir_rice(*args), 50)
+    plain = time_plain(torch, lambda: filters.fir_rice_reference(*args), 3)
+    bms, by = fir_rice_bound(c, nv, want[0].cpu().numpy())
+    log(f"K5 [{ROWS_MAIN}, {FRAME}]: exact={exact} max_abs_err={err} "
+        f"guard rows as expected={guard} (fallbacks: "
+        f"{int(((eff == 0) & (order > 0)).sum())}) kernel {ms:.4f} ms, "
+        f"plain {plain:.2f} ms, bound {bms:.5f} ms ({by})")
+    check(exact and guard, "K5 disagrees with its plain version")
+    k5 = dict(max_abs_err=err, exact=exact, ms=ms, plain_ms=plain,
+              bound_ms=bms, bound_by=by)
+
+    # K6: K5's residue counts, then random and escape-forcing counts
+    B = 2 * ROWS_MAIN
+    n_rand = rng.integers(0, 65536, ROWS_MAIN // 2).astype(np.int32)
+    frac = rng.random((ROWS_MAIN // 2, 32)) ** rng.uniform(0.2, 6, (ROWS_MAIN // 2, 1))
+    c_rand = np.floor(frac * n_rand[:, None]).astype(np.int32)
+    n_esc = rng.integers(1, 65536, ROWS_MAIN // 2).astype(np.int32)
+    c_esc = np.repeat(n_esc[:, None], 32, axis=1)  # every bit of every code
+    counts = torch.cat([got[2], torch.from_numpy(np.concatenate([c_rand, c_esc]))
+                        .to(dev)]).contiguous()
+    n = torch.cat([args[3], torch.from_numpy(np.concatenate([n_rand, n_esc]))
+                   .to(dev)]).contiguous()
+    errs, exact6 = [], True
+    for k_max in (30, 7, 0):
+        kg, bg = ops_rice.ksel(counts, n, k_max)
+        kw, bw = ops_rice.k_and_bits_reference(counts, n, k_max)
+        torch.cuda.synchronize()
+        errs.append(max(max_abs_err(kg, kw), max_abs_err(bg, bw)))
+        exact6 = exact6 and bool(torch.equal(kg, kw) and torch.equal(bg, bw))
+        escapes = int((kg == 31).sum())
+        log(f"K6 [{B}] k_max={k_max}: exact={exact6} escapes {escapes}")
+    ms6 = time_kernel(torch, lambda: ops_rice.ksel(counts, n, 30), 200)
+    plain6 = time_plain(torch,
+                        lambda: ops_rice.k_and_bits_reference(counts, n, 30), 5)
+    bms6, by6 = ksel_bound(B)
+    log(f"K6 [{B}]: max_abs_err={max(errs)} kernel {ms6:.5f} ms, plain "
+        f"{plain6:.3f} ms, bound {bms6:.6f} ms ({by6})")
+    check(exact6, "K6 disagrees with its plain version")
+    k6 = dict(max_abs_err=max(errs), exact=exact6, ms=ms6, plain_ms=plain6,
+              bound_ms=bms6, bound_by=by6)
+    return k5, k6
+
+
+def phase_analysis(torch, ops_analysis, pipeline, chans):
+    log("== phase 6: K3 (autocorr) and K4 (levinson) against their plain "
+        "versions")
+    import torch.nn.functional as tf
+
+    dev = torch.device("cuda")
+    F = CAND_MAIN // 4                 # one 512-frame stereo chunk
+    pcm = np.stack([c[: F * FRAME].reshape(F, FRAME) for c in chans], axis=1)
+    x = pipeline.make_candidates(torch.from_numpy(pcm).to(dev))
+    x = x.reshape(CAND_MAIN, FRAME).contiguous()
+    nv = torch.full((CAND_MAIN,), FRAME, dtype=torch.int32, device=dev)
+    r = ops_analysis.autocorr(x)
+    r_plain = ops_analysis.autocorr_reference(x)
+    torch.cuda.synchronize()
+
+    def rel_err(a):
+        d = (a.double() - r_plain.double()).abs().max(dim=1).values
+        r0 = r_plain[:, 0].double()
+        return float(torch.where(r0 > 0, d / r0.clamp(min=1e-300),
+                                 d * 1e300).max())
+
+    rel3 = rel_err(r)
+    err3 = float((r - r_plain).abs().max())
+    ms3 = time_kernel(torch, lambda: ops_analysis.autocorr(x), 50)
+    plain3 = time_plain(torch, lambda: ops_analysis.autocorr_reference(x), 5)
+    xf = x.float() * (1.0 / 32768.0)
+
+    def conv():   # the library yardstick: one grouped convolution
+        return tf.conv1d(xf[None], xf[:, None], padding=32,
+                         groups=CAND_MAIN)[0, :, 32:65]
+
+    # the yardstick is timed, not trusted: cuDNN picks its own algorithm,
+    # and its error is printed beside K3's tolerance, not held to it
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        rel_lib = rel_err(conv())
+        lib3 = time_kernel(torch, conv, 10)
+    bms3, by3 = autocorr_bound(CAND_MAIN, FRAME)
+    log(f"K3 [{CAND_MAIN}, {FRAME}]: max |dr|/r0 {rel3:.3g} (tolerance 1e-5), "
+        f"max |dr| {err3:.3g}; kernel {ms3:.4f} ms, plain {plain3:.3f} ms, "
+        f"conv1d {lib3:.4f} ms (max |dr|/r0 {rel_lib:.3g}"
+        f"{'' if rel_lib <= 1e-5 else ', outside 1e-5'}), bound "
+        f"{bms3:.5f} ms ({by3})")
+    check(rel3 <= 1e-5, "K3 is outside its tolerance")
+    k3 = dict(max_abs_err=err3, max_rel_err_r0=rel3, tolerance="1e-5 r0",
+              ms=ms3, plain_ms=plain3, bound_ms=bms3, bound_by=by3,
+              library_ms=lib3, library_max_rel_err_r0=rel_lib)
+
+    got = ops_analysis.analyze_from_r(r, nv, 32)      # the same r for both
+    want = ops_analysis.analyze_from_r_reference(r, nv, 32)
+    torch.cuda.synchronize()
+    differ = int(((got[0] != want[0]) | (got[1] != want[1]).any(dim=1)).sum())
+    err4 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    dcost = float((got[2] - want[2]).abs().max())
+    ms4 = time_kernel(torch, lambda: ops_analysis.analyze_from_r(r, nv, 32), 50)
+    plain4 = time_plain(
+        torch, lambda: ops_analysis.analyze_from_r_reference(r, nv, 32), 3)
+    bms4, by4 = levinson_bound(CAND_MAIN)
+    hist = np.bincount(got[0].cpu().numpy(), minlength=33).tolist()
+    log(f"K4 [{CAND_MAIN}]: rows whose order or q differ {differ} of "
+        f"{CAND_MAIN}; max_abs_err {err4}; max |dcost| {dcost:.3g} bits; "
+        f"kernel {ms4:.4f} ms, plain {plain4:.2f} ms, bound {bms4:.6f} ms "
+        f"({by4}); orders {hist}")
+    check(differ == 0, "K4 disagrees with its plain version given the same r")
+    k4 = dict(max_abs_err=err4, rows_differ=differ, max_cost_diff=dcost,
+              ms=ms4, plain_ms=plain4, bound_ms=bms4, bound_by=by4)
+    return k3, k4
 
 
 def device_profile(torch, fn) -> tuple[float, dict]:
@@ -389,18 +590,80 @@ def phase_e2e(torch, decoder, ref_codec, WavData, Metrics, bitio, container,
     check(launches["lpc"] > 0 and launches["iir"] > 0,
           f"{name}: a kernel was not launched on the decode path {launches}")
     if warm:   # a second, profiled run: where the device time goes
-        busy, by_name = device_profile(
-            torch, lambda: decoder.decode_sela(buf, device="cuda"))
-        if busy > 0:
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-            log(f"  profiled run: device busy {busy:.3f} ms = idle share "
-                f"{1 - busy / (wall * 1e3):.4f} of the timed run's wall; top: "
-                + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
-        else:
-            log("  profiled run: the profiler saw no device time "
-                "(device busy time not measured)")
+        log_profile(torch, lambda: decoder.decode_sela(buf, device="cuda"), wall)
     return dict(name=name, launches=launches, wall_s=wall,
-                pcm_mb_per_s=pcm_mb / wall, stages=stages, ms_share=ms_share)
+                pcm_mb_per_s=pcm_mb / wall, stages=stages, ms_share=ms_share,
+                oracle_bytes=len(buf))
+
+
+def log_profile(torch, fn, wall: float) -> None:
+    """A profiled run of fn: device busy ms, idle share of `wall`, top
+    kernels and copies."""
+    busy, by_name = device_profile(torch, fn)
+    if busy > 0:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        log(f"  profiled run: device busy {busy:.3f} ms = idle share "
+            f"{1 - busy / (wall * 1e3):.4f} of the timed run's wall; top: "
+            + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    else:
+        log("  profiled run: the profiler saw no device time "
+            "(device busy time not measured)")
+
+
+ENCODE_KERNELS = ("lpc", "autocorr", "levinson", "fir_rice", "ksel")
+
+
+def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
+                 container, k_lpc, k_iir, k_enc, name, chans, rate, bits,
+                 oracle_bytes, warm=False) -> dict:
+    from sela_tpu_torch.format import FRAME_SIZE, SF_MID, SYNC
+
+    w = WavData(rate, bits, chans)
+    if warm:   # first use of pinned buffers and the allocator, not counted
+        encoder.encode_wav(w, device="cuda")
+    m = Metrics()
+    k_lpc.launches = k_iir.launches = 0
+    for kernel in k_enc.launches:
+        k_enc.launches[kernel] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buf = encoder.encode_wav(w, device="cuda", metrics=m)
+    wall = time.perf_counter() - t0
+    launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
+    pcm_mb = w.n_samples * w.n_channels * bits / 8 / 1e6
+    h = container.parse_header(buf)
+    sf, _ = bitio.scan_frames(buf, container.HEADER_SIZE, h.num_frames,
+                              h.channels, SYNC, FRAME_SIZE)
+    ms_share = float(np.mean(sf["sftype"] == SF_MID)) * 2 if h.channels == 2 else 0.0
+    hist = np.bincount(sf["order"], minlength=33).tolist()
+    stages = {k: round(v, 4) for k, v in m.stage_s.items()}
+    log(f"{name}: encode on the card {wall:.3f} s = {pcm_mb / wall:.1f} PCM "
+        f"MB/s; stages {stages}; launches {launches}")
+    log(f"  ratio {len(buf) / (pcm_mb * 1e6):.4f} against the oracle's "
+        f"{oracle_bytes / (pcm_mb * 1e6):.4f} ({len(buf)} and {oracle_bytes} "
+        f"bytes); mid/side frame share {ms_share:.3f}; order histogram {hist}")
+    check(all(launches[k] > 0 for k in ENCODE_KERNELS),
+          f"{name}: a kernel was not launched on the encode path {launches}")
+    t0 = time.perf_counter()
+    out = decoder.decode_sela(buf, device="cuda")
+    identical = all(np.array_equal(a, b) for a, b in zip(out.channels, chans))
+    log(f"  the port's decoder on the card gives the input back: {identical} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    check(identical, f"{name}: the port's stream does not decode to the input")
+    if bits == 32:   # held to the spec by the oracle, not the port's decoder
+        t0 = time.perf_counter()
+        out = ref_codec.decode_sela(buf)
+        same = all(np.array_equal(a, b) for a, b in zip(out.channels, chans))
+        log(f"  the oracle decodes it to the input: {same} "
+            f"({time.perf_counter() - t0:.1f} s on the CPU)")
+        check(same, f"{name}: the oracle does not decode the port's stream")
+    if warm:
+        check(len(buf) <= 1.01 * oracle_bytes,
+              f"{name}: the port's stream is over 1% larger than the oracle's")
+        log_profile(torch, lambda: encoder.encode_wav(w, device="cuda"), wall)
+    return dict(name=name, launches=launches, wall_s=wall,
+                pcm_mb_per_s=pcm_mb / wall, stages=stages,
+                ratio=len(buf) / (pcm_mb * 1e6))
 
 
 def main() -> int:
@@ -413,12 +676,15 @@ def main() -> int:
     pkg = os.path.dirname(os.path.abspath(sela_tpu_torch.__file__))
     check(pkg == os.path.join(HERE, "sela_tpu_torch"),
           f"sela_tpu_torch imported from {pkg}, not from this checkout")
-    from sela_tpu_torch.codec import decoder
+    from sela_tpu_torch.codec import decoder, encoder, pipeline
     from sela_tpu_torch.kernels import coeffs as k_lpc
+    from sela_tpu_torch.kernels import encode as k_enc
     from sela_tpu_torch.kernels import iir as k_iir
     from sela_tpu_torch.native import bitio
+    from sela_tpu_torch.ops import analysis as ops_analysis
     from sela_tpu_torch.ops import coeffs as ops_coeffs
     from sela_tpu_torch.ops import filters
+    from sela_tpu_torch.ops import rice as ops_rice
     from sela_tpu_torch.ref import codec as ref_codec
     from sela_tpu_torch.ref import container
     from sela_tpu_torch.ref import lpc as ref_lpc
@@ -426,40 +692,63 @@ def main() -> int:
     from sela_tpu_torch.utils.build import build_log
     from sela_tpu_torch.utils.metrics import Metrics
 
-    phase_build(k_lpc, k_iir, bitio, build_log)
+    phase_build(k_lpc, k_iir, k_enc, bitio, build_log)
     lpc = phase_lpc(torch, ops_coeffs)
 
     t0 = time.perf_counter()
     cd = make_track(180.0, 44100, 16, seed=0)
     log(f"(3-minute track made in {time.perf_counter() - t0:.1f} s)")
-    iir = phase_iir(torch, ops_coeffs, filters, k_iir, ref_lpc, cd)
+    rng = np.random.default_rng(2)
+    rows = oracle_rows(ref_lpc, cd, ROWS_MAIN, rng)
+    iir = phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng)
+    k5, k6 = phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng)
+    k3, k4 = phase_analysis(torch, ops_analysis, pipeline, cd)
 
-    log("== phase 5: end to end")
-    e2e_args = (torch, decoder, ref_codec, WavData, Metrics, bitio, container,
-                k_lpc, k_iir)
-    main_run = phase_e2e(*e2e_args, "cd_180s", cd, 44100, 16, warm=True)
-    phase_e2e(*e2e_args, "hires_30s", make_track(30.0, 96000, 24, seed=1),
-              96000, 24)
+    clips = [("cd_180s", cd, 44100, 16),
+             ("hires_30s", make_track(30.0, 96000, 24, seed=1), 96000, 24)]
     c32 = make_track(10.0, 48000, 32, seed=2)
     c32[0][1000], c32[0][5000], c32[1][77_777] = -(1 << 31), (1 << 31) - 1, -(1 << 31)
-    phase_e2e(*e2e_args, "int32_10s", c32, 48000, 32)
+    clips.append(("int32_10s", c32, 48000, 32))
+
+    log("== phase 7: decode end to end")
+    e2e_args = (torch, decoder, ref_codec, WavData, Metrics, bitio, container,
+                k_lpc, k_iir)
+    decoded = {name: phase_e2e(*e2e_args, name, chans, rate, bits,
+                               warm=name == "cd_180s")
+               for name, chans, rate, bits in clips}
+
+    log("== phase 8: encode end to end")
+    enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
+                container, k_lpc, k_iir, k_enc)
+    encoded = {name: phase_encode(*enc_args, name, chans, rate, bits,
+                                  decoded[name]["oracle_bytes"],
+                                  warm=name == "cd_180s")
+               for name, chans, rate, bits in clips}
+    dec_main, enc_main = decoded["cd_180s"], encoded["cd_180s"]
+
+    def entry(name, source, replaces, res, launches, library_ms=None, **extra):
+        return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, **res,
+                    library_ms=library_ms, **extra)
 
     kernels = [
-        dict(name="lpc_from_q", route="cuda",
-             source="sela_tpu_torch/csrc/lpc.cu",
-             replaces="sela_tpu/kernels/coeffs.py:60",
-             launches=main_run["launches"]["lpc"], max_abs_err=lpc["max_abs_err"],
-             exact=lpc["exact"], ms=lpc["ms"], plain_ms=lpc["plain_ms"],
-             bound_ms=lpc["bound_ms"], bound_by=lpc["bound_by"],
-             library_ms=None),
-        dict(name="iir_synthesize", route="cuda",
-             source="sela_tpu_torch/csrc/iir.cu",
-             replaces="sela_tpu/kernels/iir.py:135 (K2), "
-                      "sela_tpu/kernels/iir.py:40 (K7)",
-             launches=main_run["launches"]["iir"], max_abs_err=iir["max_abs_err"],
-             exact=iir["exact"], ms=iir["ms"], plain_ms=iir["plain_ms"],
-             bound_ms=iir["bound_ms"], bound_by=iir["bound_by"],
-             library_ms=None),
+        entry("lpc_from_q", "lpc.cu", "sela_tpu/kernels/coeffs.py:60", lpc,
+              dec_main["launches"]["lpc"],
+              launches_by_path={"decode": dec_main["launches"]["lpc"],
+                                "encode": enc_main["launches"]["lpc"]}),
+        entry("iir_synthesize", "iir.cu",
+              "sela_tpu/kernels/iir.py:135 (K2), sela_tpu/kernels/iir.py:40 (K7)",
+              iir, dec_main["launches"]["iir"]),
+        entry("autocorr", "autocorr.cu", "sela_tpu/kernels/encode.py:213",
+              {k: v for k, v in k3.items() if k != "library_ms"},
+              enc_main["launches"]["autocorr"], library_ms=k3["library_ms"],
+              library_call="torch.nn.functional.conv1d (grouped, TF32 off)"),
+        entry("levinson", "levinson.cu", "sela_tpu/kernels/encode.py:265", k4,
+              enc_main["launches"]["levinson"]),
+        entry("fir_rice", "fir_rice.cu", "sela_tpu/kernels/encode.py:45", k5,
+              enc_main["launches"]["fir_rice"]),
+        entry("ksel", "ksel.cu", "sela_tpu/kernels/encode.py:474", k6,
+              enc_main["launches"]["ksel"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,10 +1,10 @@
 """ctypes bindings for the native Rice bitstream library (bitio.cpp).
 
-The port's copy of sela_tpu/native/bitio.py, reduced to what decode needs:
-the single-pass frame scan and the threaded block unpacker. The library is
-built with g++ from this directory's bitio.cpp at first use into the
-port's build directory (utils/build.py); a failed build raises — the
-decoder has no numpy unpacker to switch to.
+The port's copy of sela_tpu/native/bitio.py: the single-pass frame scan
+and the threaded block unpacker (decode), the threaded block packer and the
+frame emitter (encode). The library is built with g++ from this directory's
+bitio.cpp at first use into the port's build directory (utils/build.py); a
+failed build raises — the codec has no numpy packer to switch to.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from ..format import RESIDUE_PARTS, RICE_PARTITION_MARKER
 from ..utils.build import build_library
 
 _SRC = os.path.join(os.path.dirname(__file__), "bitio.cpp")
@@ -45,8 +46,92 @@ def load() -> ctypes.CDLL:
         u32p, ctypes.POINTER(ctypes.c_int64),
     ]
     lib.sela_scan_frames.restype = ctypes.c_int64
+    lib.rice_block_words.argtypes = [
+        i32p, i64p, i32p, i32p, i32p, ctypes.c_int64, i64p,
+    ]
+    lib.rice_block_words.restype = None
+    lib.rice_pack_blocks.argtypes = [
+        i32p, i64p, i32p, i32p, i32p, i64p, ctypes.c_int64, u32p,
+    ]
+    lib.rice_pack_blocks.restype = None
+    lib.sela_emit_frames.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_uint32,
+        i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p, i32p,
+        u32p, u32p, u8p,
+    ]
+    lib.sela_emit_frames.restype = ctypes.c_int64
     _lib = lib
     return lib
+
+
+def _ks4(ks4, n: int) -> np.ndarray:
+    """Packed sub-ks (k0 | k1 << 8 | ...), zeros when none is partitioned."""
+    if ks4 is None:
+        return np.zeros(n, np.int32)
+    return np.ascontiguousarray(ks4, dtype=np.int32)
+
+
+def pack_blocks_flat(values: np.ndarray, offs: np.ndarray, counts: np.ndarray,
+                     ks: np.ndarray, ks4: np.ndarray | None = None):
+    """Rice-pack blocks: block i = values[offs[i] : offs[i] + counts[i]]
+    with parameter ks[i] (32 = partition marker, sub-ks byte-packed in
+    ks4[i]). Returns (words uint32 concatenated, word count of each block
+    int64)."""
+    lib = load()
+    n = len(counts)
+    values = np.ascontiguousarray(values, dtype=np.int32)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    ks = np.ascontiguousarray(ks, dtype=np.int32)
+    k4 = _ks4(ks4, n)
+    if not (len(offs) == len(ks) == len(k4) == n):
+        raise ValueError("pack_blocks_flat: per-block arrays differ in length")
+    if n and int((offs + counts).max()) > len(values):
+        raise ValueError("pack_blocks_flat: block values out of range")
+    word_counts = np.zeros(n, np.int64)
+    lib.rice_block_words(values, offs, counts, ks, k4, n, word_counts)
+    word_offs = np.zeros(n, np.int64)
+    np.cumsum(word_counts[:-1], out=word_offs[1:])
+    out = np.zeros(int(word_counts.sum()), np.uint32)
+    lib.rice_pack_blocks(values, offs, counts, ks, k4, word_offs, n, out)
+    return out, word_counts
+
+
+def emit_frames(num_frames: int, channels: int, sync: int,
+                n_samples: np.ndarray, sf_channel: np.ndarray,
+                sf_type: np.ndarray, sf_order: np.ndarray, sf_kc: np.ndarray,
+                sf_nwc: np.ndarray, sf_kr: np.ndarray, sf_nwr: np.ndarray,
+                coeff_words: np.ndarray, res_words: np.ndarray,
+                sf_kr4: np.ndarray | None = None) -> bytes:
+    """Serialize frames (FORMAT.md frame layout); the exact inverse of
+    scan_frames. Subframe arrays are in emit order (frame-major)."""
+    lib = load()
+    a32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)   # noqa: E731
+    kr = a32(sf_kr)
+    kr4 = _ks4(sf_kr4, len(kr))
+    nwc, nwr = a32(sf_nwc), a32(sf_nwr)
+    coeff_words = np.ascontiguousarray(coeff_words, np.uint32)
+    res_words = np.ascontiguousarray(res_words, np.uint32)
+    n_sub = num_frames * channels
+    per_sub = (n_samples, sf_channel, sf_type, sf_order, sf_kc, nwc, kr, kr4,
+               nwr)
+    if len(n_samples) != num_frames or any(len(a) != n_sub for a in per_sub[1:]):
+        raise ValueError("emit_frames: per-frame or per-subframe arrays have "
+                         "the wrong length")
+    if (int(nwc.astype(np.int64).sum()) != len(coeff_words)
+            or int(nwr.astype(np.int64).sum()) != len(res_words)):
+        raise ValueError("emit_frames: word counts do not match the words")
+    n_part = int((kr == RICE_PARTITION_MARKER).sum())
+    total = (6 * num_frames + 11 * n_sub + RESIDUE_PARTS * n_part
+             + 4 * (len(coeff_words) + len(res_words)))
+    out = np.zeros(total, np.uint8)
+    written = lib.sela_emit_frames(
+        num_frames, channels, sync, a32(n_samples), a32(sf_channel),
+        a32(sf_type), a32(sf_order), a32(sf_kc), nwc, kr, kr4, nwr,
+        coeff_words, res_words, out)
+    if written != total:
+        raise RuntimeError(f"emit_frames wrote {written} of {total} bytes")
+    return out.tobytes()
 
 
 def unpack_blocks_flat(words: np.ndarray, word_offs: np.ndarray,
@@ -63,8 +148,7 @@ def unpack_blocks_flat(words: np.ndarray, word_offs: np.ndarray,
     word_counts = np.ascontiguousarray(word_counts, dtype=np.int32)
     counts = np.ascontiguousarray(counts, dtype=np.int32)
     ks = np.ascontiguousarray(ks, dtype=np.int32)
-    k4 = (np.zeros(n, np.int32) if ks4 is None
-          else np.ascontiguousarray(ks4, dtype=np.int32))
+    k4 = _ks4(ks4, n)
     if not (len(word_offs) == len(word_counts) == len(ks) == len(k4) == n):
         raise ValueError("unpack_blocks_flat: per-block arrays differ in length")
     if n and int((word_offs + word_counts).max()) > len(words):

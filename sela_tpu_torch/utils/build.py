@@ -74,9 +74,11 @@ def nvcc() -> str:
     return path
 
 
-def build_cuda(name: str, source: str) -> str:
-    """One .cu source with a plain C interface -> lib{name}.so for sm_90a."""
+def build_cuda(name: str, source: str, extra_flags: list[str] = ()) -> str:
+    """One .cu source with a plain C interface -> lib{name}.so for sm_90a;
+    extra_flags go to nvcc after the common ones."""
     return build_library(name, [source], [
         nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        *extra_flags,
     ])

@@ -37,9 +37,16 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+ENCODE_MODULES = ("config.py", "codec/encoder.py", "codec/pipeline.py",
+                  "kernels/encode.py", "ops/analysis.py", "ops/filters.py",
+                  "ops/rice.py", "native/bitio.py", "cli.py")
+
+
 def test_port_sources_import_no_jax():
     sources = _port_sources()
     assert len(sources) > 20
+    rel = {os.path.relpath(p, PORT).replace(os.sep, "/") for p in sources}
+    assert set(ENCODE_MODULES) <= rel
     bad = {os.path.relpath(p, REPO): sorted(n for n in _imported(p) if _forbidden(n))
            for p in sources}
     assert not {p: n for p, n in bad.items() if n}
@@ -87,6 +94,21 @@ def test_decode_without_device_raises_on_cuda_less_host():
     with pytest.raises(RuntimeError, match="CUDA"):
         decode_sela(buf, device="cuda")
     assert decode_sela(buf, device="cpu").n_samples == 500
+
+
+def test_encode_without_device_raises_on_cuda_less_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is the card")
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(0)
+    w = WavData(44100, 16, [rng.integers(-900, 900, 500).astype(np.int32)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_wav(w)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encode_wav(w, device="cuda")
+    assert encode_wav(w, device="cpu")[:4] == b"SeLa"
 
 
 def test_chip_smoke_fails_without_cuda():
