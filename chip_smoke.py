@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — require CUDA, print the card's name, count and power limit;
-2. build   — build the six CUDA kernel libraries and the native bit I/O
+2. build   — build the seven CUDA kernel libraries and the native bit I/O
              library from this checkout's sources, all compilers started
              together; print the build seconds and what `-Xptxas -v` says;
 3. K1      — the LPC kernel (csrc/lpc.cu) against its plain PyTorch version
@@ -20,6 +20,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              residue guard and rows on its edges) and the Rice k selection
              (csrc/ksel.cu) at 2,048 rows (K5's counts, random and
              escape-forcing counts; k_max 30, 7, 0), exactly;
+5b. K8, K6 — the per-quarter bit counts (csrc/quarter_counts.cu) at [1,024,
+             2,048], exactly: (a) phase 5's K5 residues with n_valid 2,048,
+             2,000, 7, 5, 4, 3, 1 and 0 on some rows, (b) uniform int32
+             residues holding INT32_MIN and INT32_MAX; timed and bounded on
+             (a)'s residues at phase 5's n_valid; then K6 at its v2
+             shape, 6,144 rows (K5's counts, the coefficient counts and K8's
+             quarters of (a)), exactly;
 6. K3, K4  — autocorrelation (csrc/autocorr.cu) and Levinson / order
              selection (csrc/levinson.cu) at the main path's [2,048, 2,048]
              candidate rows of the CD track: K3 within 1e-5 of r[0] a row
@@ -34,10 +41,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. encode  — `sela_tpu_torch.codec.encoder.encode_wav` on the card (the
              encode main path) on the same three clips: each stream decodes
              on the card to the input (the 32-bit one through the oracle as
-             well), K1, K3, K4, K5 and K6 must have run, and the CD stream may
-             be at most 1% larger than the oracle's; one profiled encode
-             gives the device busy time;
-9. the `kernels` JSON line, then the card's name and power limit, then the
+             well), K1, K3, K4, K5 and K6 must have run once a chunk and K8
+             never, and the CD stream may be at most 1% larger than the
+             oracle's; one profiled encode gives the device busy time;
+9. encode v2 — `encode_wav` with partitioned residues (residue_partition=4)
+             on the card: the CD track, whose stream may be no larger than
+             the v1 stream of phase 8, and a 20 s 16-bit/44.1 kHz percussive
+             clip, whose v2 stream must be more than 1% smaller than its v1
+             stream and at most 1% larger than the oracle's v2 stream, and
+             must decode to the input through the oracle too; K8 and K6 run
+             once a chunk; one profiled encode of each clip;
+10. the `kernels` JSON line, then the card's name and power limit, then the
    last line `{"ok": true, "device": {...}}`.
 
 Comparisons of the normative integer kernels are exact (max_abs_err 0); K3's
@@ -72,6 +86,8 @@ IIR_SAMPLE_OPS = 4                  # round, shift, low-32 add of e per sample
 FIR_SAMPLE_OPS = 10                 # round, shift, subtract (64-bit), guard,
                                     # select, zigzag per valid sample
 BITCOUNT_OPS = 2                    # shift-and + add per bit a sample counts
+QUARTER_SAMPLE_OPS = 8              # zigzag (3), quarter index (3 compares,
+                                    # 2 adds) per valid sample
 KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
 
 FRAME = 2048
@@ -161,6 +177,27 @@ def make_track(seconds: float, rate: int, bits: int, seed: int) -> list[np.ndarr
     return chans
 
 
+def make_percussive(seconds: float, seed: int) -> list[np.ndarray]:
+    """Drum-like 16-bit/44.1 kHz stereo from a seed (the generator of
+    tests/test_partition.py::percussive_wav): a decaying two-tone hit every
+    0.12 s under noise that swells with each hit; the right channel is the
+    left 31 samples later at 0.94. Its residues change scale within a frame,
+    which is what partitioned residues are for."""
+    rng = np.random.default_rng(seed)
+    rate = 44100
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    env = np.zeros(n)
+    period = int(0.12 * rate)
+    for s in range(0, n, period):
+        L = min(period, n - s)
+        env[s : s + L] = np.exp(-np.arange(L) / (0.015 * rate))
+    sig = env * (np.sin(2 * np.pi * 180 * t) + 0.5 * np.sin(2 * np.pi * 923 * t))
+    sig = sig * 24000 + rng.normal(0, 120, n) * (0.15 + env)
+    return [np.clip(np.round(x), -32767, 32767).astype(np.int32)
+            for x in (sig, np.roll(sig, 31) * 0.94)]
+
+
 # ---------------------------------------------------------------- timing --
 
 def time_kernel(torch, fn, iters: int) -> float:
@@ -215,21 +252,38 @@ def iir_bound(order: np.ndarray, n: int) -> tuple[float, str]:
 
 
 def fir_rice_bound(c: np.ndarray, nv: np.ndarray, e: np.ndarray):
-    """K5 on these rows: reads x, c, order and n_valid, writes e, eff_order
-    and counts. Per valid sample: a 64-bit multiply-add per tap below the
-    row's highest nonzero coefficient, the epilogue, and a shift-and-add
-    per bit up to the row's widest zigzag code (higher counts are zero)."""
+    """K5 on these rows: reads x up to n_valid, c, order and n_valid, writes
+    e (the whole row), eff_order and counts. Per valid sample: a 64-bit
+    multiply-add per tap below the row's highest nonzero coefficient, the
+    epilogue, and a shift-and-add per bit up to the row's widest zigzag code
+    (higher counts are zero)."""
     B, N = e.shape
     nz = c != 0
     taps = np.where(nz.any(axis=1), 32 - np.argmax(nz[:, ::-1], axis=1), 0)
     valid = np.clip(nv.astype(np.int64), 0, N)
-    e64 = e.astype(np.int64)
-    u = np.where(np.arange(N)[None, :] < valid[:, None],
-                 (e64 << 1) ^ (e64 >> 63), 0)
-    width = np.array([int(m).bit_length() for m in u.max(axis=1)])
     ops = (valid * (MAC64_OPS * taps + FIR_SAMPLE_OPS
-                    + BITCOUNT_OPS * width)).sum()
-    return bound_ms(B * (2 * N * 4 + 2 * 32 * 4 + 3 * 4), ops)
+                    + BITCOUNT_OPS * zigzag_widths(e, valid))).sum()
+    return bound_ms(valid.sum() * 4 + B * (N * 4 + 2 * 32 * 4 + 3 * 4), ops)
+
+
+def zigzag_widths(e: np.ndarray, nv: np.ndarray) -> np.ndarray:
+    """Bits of each row's widest zigzag code among its first nv samples."""
+    N = e.shape[1]
+    e64 = e.astype(np.int64)
+    u = np.where(np.arange(N)[None, :] < nv[:, None], (e64 << 1) ^ (e64 >> 63), 0)
+    return np.array([int(m).bit_length() for m in u.max(axis=1)])
+
+
+def quarter_counts_bound(e: np.ndarray, nv: np.ndarray) -> tuple[float, str]:
+    """K8 on these rows: reads e up to n_valid (the counts do not depend on
+    what lies past it) and n_valid, writes [4, 32] counts a row. Per valid
+    sample: the zigzag and the quarter index, and a shift-and-add per bit up
+    to the row's widest zigzag code (higher counts are zero)."""
+    B, N = e.shape
+    valid = np.clip(nv.astype(np.int64), 0, N)
+    ops = (valid * (QUARTER_SAMPLE_OPS
+                    + BITCOUNT_OPS * zigzag_widths(e, valid))).sum()
+    return bound_ms(valid.sum() * 4 + B * (4 + 4 * 32 * 4), ops)
 
 
 def ksel_bound(B: int) -> tuple[float, str]:
@@ -466,7 +520,78 @@ def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
     check(exact6, "K6 disagrees with its plain version")
     k6 = dict(max_abs_err=max(errs), exact=exact6, ms=ms6, plain_ms=plain6,
               bound_ms=bms6, bound_by=by6)
-    return k5, k6
+    render = dict(e=got[0], eff_order=got[1], counts=got[2], nv=nv,
+                  q=torch.from_numpy(q).to(dev))
+    return k5, k6, render
+
+
+def phase_quarter_counts(torch, ops_rice, render, rng):
+    log("== phase 5b: K8 (quarter_counts) and K6 at its v2 shape against "
+        "their plain versions")
+    dev = torch.device("cuda")
+    # (a) K5's residues; n_valid below K5's on some rows leaves residues
+    # past it, which K8 must ignore
+    nv = render["nv"].copy()
+    for j, v in enumerate((2048, 2000, 7, 5, 4, 3, 1, 0)):
+        nv[(np.arange(ROWS_MAIN) % 64) == 20 + j] = v
+    e_a = render["e"]
+    nv_a = torch.from_numpy(nv).to(dev)
+    # (b) uniform int32 residues with INT32_MIN rows and both extremes
+    e_b = rng.integers(-(1 << 31), 1 << 31, (ROWS_MAIN, FRAME),
+                       dtype=np.int64).astype(np.int32)
+    e_b[::37] = -(1 << 31)
+    e_b[1::37, :2] = (-(1 << 31), (1 << 31) - 1)
+    e_b = torch.from_numpy(e_b).to(dev)
+    errs, exact = [], True
+    for name, e in (("a", e_a), ("b", e_b)):
+        got = ops_rice.quarter_counts(e, nv_a)
+        want = ops_rice.quarter_counts_reference(e, nv_a)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, want))
+        exact = exact and bool(torch.equal(got, want))
+        log(f"K8 ({name}) [{ROWS_MAIN}, {FRAME}]: exact={exact} "
+            f"max_abs_err={errs[-1]}")
+        if name == "a":
+            pc4 = got
+    # timed and bounded on the main path's n_valid (phase 5's); (a)'s
+    # shortened rows are for the exactness check only
+    nv_main = torch.from_numpy(render["nv"]).to(dev)
+    ms = time_kernel(torch, lambda: ops_rice.quarter_counts(e_a, nv_main), 200)
+    plain = time_plain(
+        torch, lambda: ops_rice.quarter_counts_reference(e_a, nv_main), 3)
+    bms, by = quarter_counts_bound(e_a.cpu().numpy(), render["nv"])
+    log(f"K8 [{ROWS_MAIN}, {FRAME}] at phase 5's n_valid: kernel {ms:.5f} ms, "
+        f"plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+    check(exact, "K8 disagrees with its plain version")
+    k8 = dict(max_abs_err=max(errs), exact=exact, ms=ms, plain_ms=plain,
+              bound_ms=bms, bound_by=by)
+
+    # K6 as the v2 render calls it: residue, coefficient and quarter rows
+    cols = torch.arange(32, device=dev)[None, :]
+    q_eff = torch.where(cols < render["eff_order"][:, None], render["q"], 0)
+    counts = torch.cat([render["counts"],
+                        ops_rice.bit_counts(ops_rice.zigzag(q_eff)),
+                        pc4.view(4 * ROWS_MAIN, 32)]).contiguous()
+    n = torch.cat([torch.from_numpy(render["nv"]).to(dev),
+                   render["eff_order"],
+                   ops_rice.quarter_bounds(nv_a).diff(dim=1).reshape(-1)
+                   ]).contiguous()
+    B = counts.shape[0]
+    kg, bg = ops_rice.ksel(counts, n, 30)
+    kw, bw = ops_rice.k_and_bits_reference(counts, n, 30)
+    torch.cuda.synchronize()
+    err6 = max(max_abs_err(kg, kw), max_abs_err(bg, bw))
+    exact6 = bool(torch.equal(kg, kw) and torch.equal(bg, bw))
+    ms6 = time_kernel(torch, lambda: ops_rice.ksel(counts, n, 30), 200)
+    plain6 = time_plain(
+        torch, lambda: ops_rice.k_and_bits_reference(counts, n, 30), 5)
+    bms6, by6 = ksel_bound(B)
+    log(f"K6 [{B}] (v2 shape): exact={exact6} max_abs_err={err6} kernel "
+        f"{ms6:.5f} ms, plain {plain6:.3f} ms, bound {bms6:.6f} ms ({by6})")
+    check(exact6, "K6 disagrees with its plain version at its v2 shape")
+    k6v2 = dict(rows=B, max_abs_err=err6, exact=exact6, ms=ms6,
+                plain_ms=plain6, bound_ms=bms6, bound_by=by6)
+    return k8, k6v2
 
 
 def phase_analysis(torch, ops_analysis, pipeline, chans):
@@ -615,19 +740,26 @@ ENCODE_KERNELS = ("lpc", "autocorr", "levinson", "fir_rice", "ksel")
 
 def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                  container, k_lpc, k_iir, k_enc, name, chans, rate, bits,
-                 oracle_bytes, warm=False) -> dict:
-    from sela_tpu_torch.format import FRAME_SIZE, SF_MID, SYNC
+                 oracle_bytes=None, max_vs_oracle=None, oracle_decode=False,
+                 profile=None, warm=False) -> dict:
+    """Encode on the card (the profile's path), decode on the card, check
+    the launches; against the oracle's stream size where max_vs_oracle is
+    given, through the oracle's decoder where oracle_decode is set; warm:
+    an uncounted encode first and a profiled one after."""
+    from sela_tpu_torch.format import (FRAME_SIZE, RICE_PARTITION_MARKER,
+                                       SF_MID, SYNC)
 
+    v2 = profile is not None and profile.residue_partition > 1
     w = WavData(rate, bits, chans)
     if warm:   # first use of pinned buffers and the allocator, not counted
-        encoder.encode_wav(w, device="cuda")
+        encoder.encode_wav(w, device="cuda", profile=profile)
     m = Metrics()
     k_lpc.launches = k_iir.launches = 0
     for kernel in k_enc.launches:
         k_enc.launches[kernel] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    buf = encoder.encode_wav(w, device="cuda", metrics=m)
+    buf = encoder.encode_wav(w, device="cuda", metrics=m, profile=profile)
     wall = time.perf_counter() - t0
     launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
     pcm_mb = w.n_samples * w.n_channels * bits / 8 / 1e6
@@ -635,35 +767,51 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
     sf, _ = bitio.scan_frames(buf, container.HEADER_SIZE, h.num_frames,
                               h.channels, SYNC, FRAME_SIZE)
     ms_share = float(np.mean(sf["sftype"] == SF_MID)) * 2 if h.channels == 2 else 0.0
+    part_share = float(np.mean(sf["k_res"] == RICE_PARTITION_MARKER))
     hist = np.bincount(sf["order"], minlength=33).tolist()
     stages = {k: round(v, 4) for k, v in m.stage_s.items()}
-    log(f"{name}: encode on the card {wall:.3f} s = {pcm_mb / wall:.1f} PCM "
+    label = f"{name} ({'v2' if v2 else 'v1'})"
+    log(f"{label}: encode on the card {wall:.3f} s = {pcm_mb / wall:.1f} PCM "
         f"MB/s; stages {stages}; launches {launches}")
-    log(f"  ratio {len(buf) / (pcm_mb * 1e6):.4f} against the oracle's "
-        f"{oracle_bytes / (pcm_mb * 1e6):.4f} ({len(buf)} and {oracle_bytes} "
-        f"bytes); mid/side frame share {ms_share:.3f}; order histogram {hist}")
-    check(all(launches[k] > 0 for k in ENCODE_KERNELS),
-          f"{name}: a kernel was not launched on the encode path {launches}")
+    vs = ("" if oracle_bytes is None else
+          f" against the oracle's {oracle_bytes / (pcm_mb * 1e6):.4f} "
+          f"({len(buf)} and {oracle_bytes} bytes)")
+    log(f"  ratio {len(buf) / (pcm_mb * 1e6):.4f}{vs}; {len(buf)} bytes; "
+        f"partitioned subframe share {part_share:.4f}; mid/side frame share "
+        f"{ms_share:.3f}; order histogram {hist}")
+    needed = ENCODE_KERNELS + (("quarter_counts",) if v2 else ())
+    check(all(launches[k] > 0 for k in needed),
+          f"{label}: a kernel was not launched on the encode path {launches}")
+    # one render a chunk: K1, K5 and one K6 launch each, K8 one under v2
+    per_chunk = launches["fir_rice"]
+    check(launches["lpc"] == launches["ksel"] == per_chunk
+          and launches["quarter_counts"] == (per_chunk if v2 else 0),
+          f"{label}: not one launch a chunk of K1, K6 (and K8) {launches}")
+    check(v2 or part_share == 0.0, f"{label}: a v1 stream holds partitions")
     t0 = time.perf_counter()
     out = decoder.decode_sela(buf, device="cuda")
     identical = all(np.array_equal(a, b) for a, b in zip(out.channels, chans))
     log(f"  the port's decoder on the card gives the input back: {identical} "
         f"({time.perf_counter() - t0:.3f} s)")
-    check(identical, f"{name}: the port's stream does not decode to the input")
-    if bits == 32:   # held to the spec by the oracle, not the port's decoder
+    check(identical, f"{label}: the port's stream does not decode to the input")
+    if oracle_decode:   # held to the spec by the oracle, not the port's decoder
         t0 = time.perf_counter()
         out = ref_codec.decode_sela(buf)
         same = all(np.array_equal(a, b) for a, b in zip(out.channels, chans))
         log(f"  the oracle decodes it to the input: {same} "
             f"({time.perf_counter() - t0:.1f} s on the CPU)")
-        check(same, f"{name}: the oracle does not decode the port's stream")
+        check(same, f"{label}: the oracle does not decode the port's stream")
+    if max_vs_oracle is not None:
+        check(len(buf) <= max_vs_oracle * oracle_bytes,
+              f"{label}: the port's stream is over {max_vs_oracle}x the "
+              f"oracle's")
     if warm:
-        check(len(buf) <= 1.01 * oracle_bytes,
-              f"{name}: the port's stream is over 1% larger than the oracle's")
-        log_profile(torch, lambda: encoder.encode_wav(w, device="cuda"), wall)
+        log_profile(torch, lambda: encoder.encode_wav(w, device="cuda",
+                                                      profile=profile), wall)
     return dict(name=name, launches=launches, wall_s=wall,
                 pcm_mb_per_s=pcm_mb / wall, stages=stages,
-                ratio=len(buf) / (pcm_mb * 1e6))
+                ratio=len(buf) / (pcm_mb * 1e6), bytes=len(buf),
+                partitioned_share=part_share)
 
 
 def main() -> int:
@@ -677,6 +825,7 @@ def main() -> int:
     check(pkg == os.path.join(HERE, "sela_tpu_torch"),
           f"sela_tpu_torch imported from {pkg}, not from this checkout")
     from sela_tpu_torch.codec import decoder, encoder, pipeline
+    from sela_tpu_torch.config import BitstreamProfile
     from sela_tpu_torch.kernels import coeffs as k_lpc
     from sela_tpu_torch.kernels import encode as k_enc
     from sela_tpu_torch.kernels import iir as k_iir
@@ -701,7 +850,9 @@ def main() -> int:
     rng = np.random.default_rng(2)
     rows = oracle_rows(ref_lpc, cd, ROWS_MAIN, rng)
     iir = phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng)
-    k5, k6 = phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng)
+    k5, k6, render = phase_fir_ksel(torch, ops_coeffs, filters, ops_rice,
+                                    rows, rng)
+    k8, k6v2 = phase_quarter_counts(torch, ops_rice, render, rng)
     k3, k4 = phase_analysis(torch, ops_analysis, pipeline, cd)
 
     clips = [("cd_180s", cd, 44100, 16),
@@ -720,11 +871,32 @@ def main() -> int:
     log("== phase 8: encode end to end")
     enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                 container, k_lpc, k_iir, k_enc)
-    encoded = {name: phase_encode(*enc_args, name, chans, rate, bits,
-                                  decoded[name]["oracle_bytes"],
-                                  warm=name == "cd_180s")
-               for name, chans, rate, bits in clips}
+    encoded = {name: phase_encode(
+        *enc_args, name, chans, rate, bits, decoded[name]["oracle_bytes"],
+        max_vs_oracle=1.01 if name == "cd_180s" else None,
+        oracle_decode=bits == 32, warm=name == "cd_180s")
+        for name, chans, rate, bits in clips}
     dec_main, enc_main = decoded["cd_180s"], encoded["cd_180s"]
+
+    log("== phase 9: encode end to end, partitioned residues (v2)")
+    v2 = BitstreamProfile(residue_partition=4)
+    enc_v2 = phase_encode(*enc_args, "cd_180s", cd, 44100, 16, profile=v2,
+                          warm=True)
+    check(enc_v2["bytes"] <= enc_main["bytes"],
+          "cd_180s: the v2 stream is larger than the v1 stream")
+    log(f"cd_180s: v2/v1 size {enc_v2['bytes'] / enc_main['bytes']:.5f}")
+    perc = make_percussive(20.0, seed=3)
+    t0 = time.perf_counter()
+    oracle_v2 = len(ref_codec.encode_wav(WavData(44100, 16, perc), profile=v2))
+    log(f"perc_20s: oracle v2 encode {time.perf_counter() - t0:.1f} s")
+    perc_v1 = phase_encode(*enc_args, "perc_20s", perc, 44100, 16)
+    perc_v2 = phase_encode(*enc_args, "perc_20s", perc, 44100, 16, oracle_v2,
+                           max_vs_oracle=1.01, oracle_decode=True, profile=v2,
+                           warm=True)
+    log(f"perc_20s: v2/v1 size {perc_v2['bytes'] / perc_v1['bytes']:.5f}, "
+        f"v2/oracle v2 {perc_v2['bytes'] / oracle_v2:.5f}")
+    check(perc_v2["bytes"] < 0.99 * perc_v1["bytes"],
+          "perc_20s: the v2 stream is not 1% smaller than the v1 stream")
 
     def entry(name, source, replaces, res, launches, library_ms=None, **extra):
         return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
@@ -735,7 +907,8 @@ def main() -> int:
         entry("lpc_from_q", "lpc.cu", "sela_tpu/kernels/coeffs.py:60", lpc,
               dec_main["launches"]["lpc"],
               launches_by_path={"decode": dec_main["launches"]["lpc"],
-                                "encode": enc_main["launches"]["lpc"]}),
+                                "encode": enc_main["launches"]["lpc"],
+                                "encode_v2": enc_v2["launches"]["lpc"]}),
         entry("iir_synthesize", "iir.cu",
               "sela_tpu/kernels/iir.py:135 (K2), sela_tpu/kernels/iir.py:40 (K7)",
               iir, dec_main["launches"]["iir"]),
@@ -748,7 +921,13 @@ def main() -> int:
         entry("fir_rice", "fir_rice.cu", "sela_tpu/kernels/encode.py:45", k5,
               enc_main["launches"]["fir_rice"]),
         entry("ksel", "ksel.cu", "sela_tpu/kernels/encode.py:474", k6,
-              enc_main["launches"]["ksel"]),
+              enc_main["launches"]["ksel"],
+              launches_by_path={"v1": enc_main["launches"]["ksel"],
+                                "v2": enc_v2["launches"]["ksel"]},
+              v2_shape=k6v2),
+        entry("quarter_counts", "quarter_counts.cu",
+              "sela_tpu/kernels/encode.py:401", k8,
+              enc_v2["launches"]["quarter_counts"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(smi)

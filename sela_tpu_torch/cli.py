@@ -1,14 +1,17 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m sela_tpu_torch.cli encode in.wav out.sela [--cpu] [profile flags]
+                                        [--tag KEY=VALUE ...]
     python -m sela_tpu_torch.cli decode in.sela out.wav [--cpu] [--chunk-frames N]
     python -m sela_tpu_torch.cli verify in.wav [--cpu] [profile flags]
     python -m sela_tpu_torch.cli info file.sela
 
 `encode`, `decode` and `verify` run on the CUDA card unless --cpu is given
 (then the plain PyTorch versions of the kernels run). Profile flags:
---max-order, --rice-k-max, --no-mid-side, --exact-mid-side. The `selax`
-entry point of the JAX package is separate and unchanged.
+--frame-size, --max-order, --rice-k-max, --no-mid-side, --exact-mid-side,
+--partition-residues (the v2 profile). `encode --tag KEY=VALUE`
+(repeatable) appends a tags trailer. The `selax` entry point of the JAX
+package is separate and unchanged.
 """
 from __future__ import annotations
 
@@ -30,15 +33,30 @@ def _human(nbytes: float) -> str:
 def _profile_from(args):
     """BitstreamProfile from the profile flags (FORMAT.md v1 defaults)."""
     from .config import BitstreamProfile
+    from .format import RESIDUE_PARTS
 
     return BitstreamProfile(
+        frame_size=(BitstreamProfile.frame_size if args.frame_size is None
+                    else args.frame_size),
         max_order=(BitstreamProfile.max_order if args.max_order is None
                    else args.max_order),
         rice_k_max=(BitstreamProfile.rice_k_max if args.rice_k_max is None
                     else args.rice_k_max),
         mid_side=("off" if args.no_mid_side
                   else "exact" if args.exact_mid_side else "auto"),
+        residue_partition=RESIDUE_PARTS if args.partition_residues else 1,
     ).validate()
+
+
+def _parse_tags(pairs: list[str]) -> dict:
+    """KEY=VALUE strings -> {KEY: VALUE}."""
+    tags = {}
+    for kv in pairs:
+        if "=" not in kv:
+            raise ValueError(f"tag must be KEY=VALUE, got {kv!r}")
+        k, v = kv.split("=", 1)
+        tags[k] = v
+    return tags
 
 
 def _device(args):
@@ -53,7 +71,7 @@ def cmd_encode(args) -> int:
     profile = _profile_from(args)
     t0 = time.perf_counter()
     buf = encode_wav(w, chunk_frames=args.chunk_frames, profile=profile,
-                     device=_device(args))
+                     tags=_parse_tags(args.tags or []), device=_device(args))
     dt = time.perf_counter() - t0
     with open(args.output, "wb") as f:
         f.write(buf)
@@ -155,6 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
         return sp
 
     def add_profile_flags(sp):
+        sp.add_argument("--frame-size", type=int, default=None,
+                        help="samples a channel a frame (<= 2048)")
         sp.add_argument("--max-order", type=int, default=None,
                         help="LPC order search cap (<= 32)")
         sp.add_argument("--rice-k-max", type=int, default=None,
@@ -165,10 +185,15 @@ def build_parser() -> argparse.ArgumentParser:
         ms.add_argument("--exact-mid-side", action="store_true",
                         help="decide mid/side from exact coded bits (renders "
                              "every candidate)")
+        sp.add_argument("--partition-residues", action="store_true",
+                        help="adaptive 4-way partitioned residues (smaller "
+                             "files on transient content; FORMAT.md)")
 
     enc = add("encode", cmd_encode, "WAV -> .sela")
     enc.add_argument("input")
     enc.add_argument("output")
+    enc.add_argument("--tag", action="append", metavar="KEY=VALUE",
+                     dest="tags", help="attach a metadata tag (repeatable)")
     add_profile_flags(enc)
     dec = add("decode", cmd_decode, ".sela -> WAV")
     dec.add_argument("input")

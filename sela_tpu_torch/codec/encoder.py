@@ -3,9 +3,9 @@
 Counterpart of sela_tpu/codec/encoder.py. The PCM is framed into [F, C, S]
 chunks, each chunk is staged in pinned host buffers and copied to the
 device without blocking, codec/pipeline.py::encode_step analyzes and
-renders it there (K3, K4, K1, K5, K6), and the planning arrays and residues
-come back without blocking into pinned buffers, behind one CUDA event a
-chunk. The host Rice-packs chunk i with the native library (native/
+renders it there (K3, K4, K1, K5, K6, and K8 under partitioned
+residues), and the planning arrays and residues come back without
+blocking into pinned buffers, behind one CUDA event a chunk. The host Rice-packs chunk i with the native library (native/
 bitio.cpp, built at first use; there is no numpy packer) while the card
 encodes chunks i+1..i+3 (a PIPELINE-deep software pipeline), and the frames
 are serialized in order.
@@ -76,7 +76,8 @@ def _pack_chunk(plan: np.ndarray, res: np.ndarray, nv: np.ndarray) -> bytes:
     qvals = qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]]
     coeff_words, coeff_wc = bitio.pack_blocks_flat(
         qvals, _exclusive_cumsum(order), order, cols["k_coeff"])
-    # the device planned every block's words from its bit counts (K5, K6);
+    # the device planned every block's words from its bit counts (K5, K8,
+    # K6);
     # the packer counts them again from the values: they must agree
     if not (np.array_equal(res_wc, cols["nw_res"])
             and np.array_equal(coeff_wc, cols["nw_coeff"])):
@@ -110,8 +111,8 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     """Encode WavData to .sela bytes on `device` (default: the CUDA card).
 
     profile: optional config.BitstreamProfile (defaults = FORMAT.md v1;
-    residue_partition=4 raises NotImplementedError until the K8 kernel is
-    ported). device="cpu" runs the plain PyTorch versions of the kernels;
+    residue_partition=4 is the v2 profile, partitioned residues where they
+    are smaller). device="cpu" runs the plain PyTorch versions of the kernels;
     with no device named and no CUDA available this raises. metrics:
     optional utils.metrics.Metrics sink (stages host_frame /
     device_dispatch / device_fetch / host_pack). tags: optional metadata
@@ -131,10 +132,6 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
         allow_ms = profile.mid_side != "off"
         ms_mode = "exact" if profile.mid_side == "exact" else "est"
         partition = profile.residue_partition
-    if partition != 1:
-        raise NotImplementedError(
-            "residue_partition=4 needs the quarter-counts kernel (K8), which "
-            "the port does not have yet")
     allow_ms = allow_ms and w.bits_per_sample <= 24   # FORMAT.md: 32-bit is LR
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -163,7 +160,7 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
                 slot.x[:fcount].to(dev, non_blocking=True),
                 slot.nv[:fcount].to(dev, non_blocking=True),
                 allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
-                ms_mode=ms_mode)
+                partition=partition, ms_mode=ms_mode)
             plan = torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
                               out["qcoeffs"]], dim=-1)
             slot.plan[:fcount].copy_(plan, non_blocking=cuda)

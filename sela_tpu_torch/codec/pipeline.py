@@ -5,7 +5,8 @@ boundary of each step:
 - `encode_step`: PCM [F, C, S] + n_valid [F] -> the planning arrays and
   residues of the chunk, the mid/side decision applied (the JAX
   encode_step's fused branch: K3 + K4 analysis on every candidate row, then
-  the render, K1 -> K5 -> one K6 call, on the rows it needs);
+  the render, K1 -> K5 (-> K8 under partitioned residues) -> one K6
+  call, on the rows it needs);
 - `decode_step`: residues [F, C, S], qcoeffs [F, C, 32], order and sftype
   [F, C] -> PCM (K1, then K2/K7).
 Kernel routing depends on the device only: on CUDA tensors the kernels
@@ -19,12 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from ..format import MAX_ORDER, RICE_K_MAX, SF_DIRECT, SF_MID, SF_SIDE
+from ..format import (MAX_ORDER, RESIDUE_PARTS, RICE_K_MAX,
+                      RICE_PARTITION_MARKER, SF_DIRECT, SF_MID, SF_SIDE)
 from ..kernels.iir import iir_synthesize
 from ..ops.analysis import analyze
 from ..ops.coeffs import lpc_from_q
 from ..ops.filters import fir_rice
-from ..ops.rice import bit_counts, block_words, ksel, zigzag
+from ..ops.rice import (bit_counts, block_words, ksel, quarter_bounds,
+                        quarter_counts, zigzag)
 
 
 def _mid_side(left: torch.Tensor, right: torch.Tensor):
@@ -46,28 +49,50 @@ def make_candidates(x: torch.Tensor) -> torch.Tensor:
 
 
 def _render_rows(xb: torch.Tensor, q: torch.Tensor, order: torch.Tensor,
-                 nv: torch.Tensor, rice_k_max: int) -> dict:
+                 nv: torch.Tensor, rice_k_max: int,
+                 partition: int = 1) -> dict:
     """Normative render of [B, S] rows with chosen (order, q): K1 integer
     Levinson -> K5 FIR residues, guard and residue bit counts -> one K6
     call for the residue and coefficient blocks together (the JAX
-    _render_rows, residue_partition=1). Returns per-row arrays, with
-    block_bits = padded-word bits of both blocks (the exact mid/side rule's
-    metric)."""
+    _render_rows). partition=4 (FORMAT.md §Partitioned residues) adds K8's
+    per-quarter counts of the residues, whose 4B quarter rows join that K6
+    call, and emits a row partitioned (k_res = RICE_PARTITION_MARKER, its
+    sub-ks byte-packed in kr4) where that is strictly smaller, the oracle's
+    rule. Returns per-row arrays, with block_bits = padded-word bits of both
+    blocks plus a partitioned row's 4 sub-k bytes (the exact mid/side
+    rule's metric)."""
     c = lpc_from_q(q, order)
     e, eff_order, counts_res = fir_rice(xb, c, order, nv)
     cols = torch.arange(MAX_ORDER, device=q.device)[None, :]
     q_eff = torch.where(cols < eff_order[:, None], q, 0)
     # q_eff is zero from eff_order on, so its codes need no further mask
-    counts_coeff = bit_counts(zigzag(q_eff))
+    counts = [counts_res, bit_counts(zigzag(q_eff))]
+    ns = [nv, eff_order]
     B = xb.shape[0]
-    k_all, bits_all = ksel(torch.cat([counts_res, counts_coeff]),
-                           torch.cat([nv, eff_order]), rice_k_max)
-    nw_res = block_words(bits_all[:B])
-    nw_coeff = block_words(bits_all[B:])
-    return dict(e=e, eff_order=eff_order, q_eff=q_eff, k_res=k_all[:B],
-                kr4=torch.zeros_like(eff_order), k_coeff=k_all[B:],
-                nw_res=nw_res, nw_coeff=nw_coeff,
-                block_bits=32 * (nw_res + nw_coeff))
+    if partition == RESIDUE_PARTS:
+        counts.append(quarter_counts(e, nv).view(RESIDUE_PARTS * B, 32))
+        ns.append(quarter_bounds(nv).diff(dim=1).reshape(RESIDUE_PARTS * B))
+    k_all, bits_all = ksel(torch.cat(counts), torch.cat(ns), rice_k_max)
+    k_res, nw_res = k_all[:B], block_words(bits_all[:B])
+    nw_coeff = block_words(bits_all[B : 2 * B])
+    kr4 = header_bytes = torch.zeros_like(eff_order)
+    if partition == RESIDUE_PARTS:
+        kq = k_all[2 * B :].view(B, RESIDUE_PARTS)
+        bits_q = bits_all[2 * B :].view(B, RESIDUE_PARTS)
+        nw_part = block_words(bits_q.sum(dim=1, dtype=torch.int32))
+        # the partitioned block pays one sub-k byte a quarter in its header
+        use_part = (nv >= RESIDUE_PARTS) & (
+            32 * nw_part + 8 * RESIDUE_PARTS < 32 * nw_res)
+        packed = kq[:, 0]
+        for i in range(1, RESIDUE_PARTS):
+            packed = packed | (kq[:, i] << (8 * i))   # sub-ks <= 31: no sign
+        kr4 = torch.where(use_part, packed, 0)
+        k_res = torch.where(use_part, RICE_PARTITION_MARKER, k_res)
+        nw_res = torch.where(use_part, nw_part, nw_res)
+        header_bytes = use_part.to(torch.int32) * RESIDUE_PARTS
+    return dict(e=e, eff_order=eff_order, q_eff=q_eff, k_res=k_res, kr4=kr4,
+                k_coeff=k_all[B : 2 * B], nw_res=nw_res, nw_coeff=nw_coeff,
+                block_bits=32 * (nw_res + nw_coeff) + 8 * header_bytes)
 
 
 def encode_step(x: torch.Tensor, n_valid: torch.Tensor, allow_ms: bool = True,
@@ -80,18 +105,18 @@ def encode_step(x: torch.Tensor, n_valid: torch.Tensor, allow_ms: bool = True,
     PCM, FORMAT.md). ms_mode "est" (BitstreamProfile mid_side="auto")
     decides each pair from the cost that order selection models and renders
     the C winner rows only; "exact" renders every candidate and compares
-    padded-word bits, the oracle's rule. partition=4 (partitioned residues)
-    needs the K8 kernel, which is not ported yet, and raises.
+    padded-word bits, the oracle's rule. partition=4 enables adaptive
+    partitioned residues (FORMAT.md §Partitioned residues): each subframe
+    takes the cheaper of the plain and the partitioned encoding, the
+    oracle's rule; the render then runs K8 too. Other values raise.
 
     Returns the JAX encode_step's dict: residues [F, C, S] int32, res16
     [F, C, S] int16, fits16 [F] int32, order, k_res, k_res4, k_coeff,
     nw_res, nw_coeff, sftype [F, C] int32 and qcoeffs [F, C, 32] int32.
     """
-    if partition != 1:
-        raise NotImplementedError(
-            "residue_partition=4 needs the quarter-counts kernel (K8, "
-            "sela_tpu/kernels/encode.py::_quarter_counts_kernel), which the "
-            "port does not have yet")
+    if partition not in (1, RESIDUE_PARTS):
+        raise ValueError(f"partition must be 1 or {RESIDUE_PARTS}, got "
+                         f"{partition}")
     if ms_mode not in ("est", "exact"):
         raise ValueError(f"ms_mode must be est|exact, got {ms_mode!r}")
     if rice_k_max is None:
@@ -114,14 +139,15 @@ def encode_step(x: torch.Tensor, n_valid: torch.Tensor, allow_ms: bool = True,
                          _pick(q.view(F, C2, MAX_ORDER), use_ms, C, 0)
                          .view(C * F, MAX_ORDER),
                          _pick(order.view(F, C2), use_ms, C, 0).view(C * F),
-                         n_valid.to(torch.int32).repeat(C), rice_k_max)
+                         n_valid.to(torch.int32).repeat(C), rice_k_max,
+                         partition)
 
         def out(a):
             return a.view(C, F, *a.shape[1:]).transpose(0, 1)
     else:
         # the exact rule (also the path without pairs, where the two rules
         # agree): render every candidate, decide on padded-word bits
-        r = _render_rows(xb, q, order, nv, rice_k_max)
+        r = _render_rows(xb, q, order, nv, rice_k_max, partition)
         use_ms = _use_mid_side(r["block_bits"].view(F, C2), C, n_pairs)
 
         def out(a):

@@ -1,19 +1,24 @@
-"""K3-K6 on the card: launchers of the four encode kernels.
+"""K3-K6 and K8 on the card: launchers of the five encode kernels.
 
 One CUDA C++ source and library per kernel, each replacing one
 sela_tpu/kernels/encode.py kernel:
 
-    autocorr  csrc/autocorr.cu  K3 _autocorr_kernel       (autocorr_pallas)
-    levinson  csrc/levinson.cu  K4 _make_levinson_kernel  (analyze_pallas)
-    fir_rice  csrc/fir_rice.cu  K5 _fir_rice_kernel       (fir_rice_pallas)
-    ksel      csrc/ksel.cu      K6 _make_ksel_kernel      (ksel_pallas)
+    autocorr        csrc/autocorr.cu        K3 _autocorr_kernel
+                                               (autocorr_pallas)
+    levinson        csrc/levinson.cu        K4 _make_levinson_kernel
+                                               (analyze_pallas)
+    fir_rice        csrc/fir_rice.cu        K5 _fir_rice_kernel
+                                               (fir_rice_pallas)
+    ksel            csrc/ksel.cu            K6 _make_ksel_kernel (ksel_pallas)
+    quarter_counts  csrc/quarter_counts.cu  K8 _quarter_counts_kernel
+                                               (quarter_counts_pallas)
 
 Each source says what bounds it and how it is laid out. The dispatching
 wrappers with their checks, and the plain versions beside them, are
 ops/analysis.py (autocorr, analyze_from_r), ops/filters.py (fir_rice) and
-ops/rice.py (ksel). The launchers here take checked, contiguous tensors on
-one CUDA device, allocate the outputs, launch on the current stream and
-count the launch.
+ops/rice.py (ksel, quarter_counts). The launchers here take checked,
+contiguous tensors on one CUDA device, allocate the outputs, launch on the
+current stream and count the launch.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ KERNELS = {
     "fir_rice": ("sela_fir_rice", "fir_rice.cu", "sela_fir_rice",
                  [_P, _P, _P, _P, _P, _P, _P, _I, _I], ()),
     "ksel": ("sela_ksel", "ksel.cu", "sela_ksel", [_P, _P, _P, _P, _I, _I], ()),
+    "quarter_counts": ("sela_quarter_counts", "quarter_counts.cu",
+                       "sela_quarter_counts", [_P, _P, _P, _I, _I], ()),
 }
 launches = {name: 0 for name in KERNELS}   # since the last reset (chip_smoke.py)
 _libs: dict[str, ctypes.CDLL] = {}
@@ -115,3 +122,12 @@ def ksel_cuda(counts: torch.Tensor, n_valid: torch.Tensor, k_max: int):
     _launch("ksel", counts.device, B, counts.data_ptr(), n_valid.data_ptr(),
             k.data_ptr(), bits.data_ptr(), B, k_max)
     return k, bits
+
+
+def quarter_counts_cuda(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """K8: e [B, N] int32 + n_valid [B] int32 -> [B, 4, 32] int32."""
+    B, N = e.shape
+    out = torch.empty((B, 4, 32), dtype=torch.int32, device=e.device)
+    _launch("quarter_counts", e.device, B, e.data_ptr(), n_valid.data_ptr(),
+            out.data_ptr(), B, N)
+    return out

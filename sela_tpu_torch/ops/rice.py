@@ -13,14 +13,17 @@ Zigzag values are held as int64 in [0, 2^32): `>>` on torch.uint32 raises
 on the CPU, and int64 keeps every shift and comparison plain.
 
 `ksel` is the dispatching wrapper of the K6 kernel (kernels/encode.py,
-csrc/ksel.cu); `k_and_bits_reference` is its plain version.
+csrc/ksel.cu); `k_and_bits_reference` is its plain version. `quarter_counts`
+is the wrapper of K8 (csrc/quarter_counts.cu), the per-quarter bit counts
+of partitioned-residue planning (FORMAT.md §Partitioned residues), and
+`quarter_counts_reference` its plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from ..format import RICE_K_ESCAPE, RICE_K_MAX
-from ..kernels.encode import ksel_cuda
+from ..format import RESIDUE_PARTS, RICE_K_ESCAPE, RICE_K_MAX
+from ..kernels.encode import ksel_cuda, quarter_counts_cuda
 
 NBITS = 32   # columns of a bit-count row: bit j of the 32-bit zigzag value
 
@@ -105,6 +108,55 @@ def ksel(counts: torch.Tensor, n_valid: torch.Tensor, k_max: int = RICE_K_MAX):
     if counts.device.type != "cuda":
         raise ValueError(f"ksel: unsupported device {counts.device}")
     return ksel_cuda(counts, n_valid, k_max)
+
+
+def quarter_bounds(n_valid: torch.Tensor) -> torch.Tensor:
+    """[B] value counts -> [B, 5] int32 quarter edges: quarter q of a row is
+    [edge q, edge q + 1) = [(q nv) // 4, ((q + 1) nv) // 4)."""
+    q = torch.arange(RESIDUE_PARTS + 1, dtype=torch.int32,
+                     device=n_valid.device)
+    return (q * n_valid.to(torch.int32)[:, None]) // RESIDUE_PARTS
+
+
+def quarter_counts_reference(e: torch.Tensor,
+                             n_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: residues [B, N] int32 + [B] value counts ->
+    [B, 4, 32] int32; [b, q, j] = number of samples of row b's quarter q
+    whose zigzag code has bit j set (sela_tpu quarter_counts_pallas: each
+    quarter masked, then bit_counts). Samples from n_valid on count in no
+    quarter, whatever they hold."""
+    u = zigzag(e)
+    n = torch.arange(e.shape[1], device=e.device)[None, :]
+    edges = quarter_bounds(n_valid)[:, :, None]
+    inside = [(n >= edges[:, q]) & (n < edges[:, q + 1])
+              for q in range(RESIDUE_PARTS)]
+    return torch.stack([bit_counts(torch.where(m, u, 0)) for m in inside],
+                       dim=1)
+
+
+def quarter_counts(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """e [B, N] int32 + n_valid [B] int32 -> [B, 4, 32] int32 per-quarter
+    bit counts.
+
+    On a CPU tensor this runs the plain version; on a CUDA tensor it
+    launches the K8 kernel (csrc/quarter_counts.cu) or raises — there is no
+    fallback.
+    """
+    if e.dtype != torch.int32 or n_valid.dtype != torch.int32:
+        raise TypeError(f"quarter_counts needs int32 e and n_valid, got "
+                        f"{e.dtype} and {n_valid.dtype}")
+    if e.dim() != 2 or n_valid.shape != (e.shape[0],):
+        raise ValueError(f"quarter_counts needs e [B, N] and n_valid [B], got "
+                         f"{tuple(e.shape)} and {tuple(n_valid.shape)}")
+    if not (e.is_contiguous() and n_valid.is_contiguous()):
+        raise ValueError("quarter_counts needs contiguous e and n_valid")
+    if e.device != n_valid.device:
+        raise ValueError(f"e on {e.device} but n_valid on {n_valid.device}")
+    if e.device.type == "cpu":
+        return quarter_counts_reference(e, n_valid)
+    if e.device.type != "cuda":
+        raise ValueError(f"quarter_counts: unsupported device {e.device}")
+    return quarter_counts_cuda(e, n_valid)
 
 
 def block_words(bits: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ runs on a machine that has only PyTorch:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (`--noconftest` because tests/conftest.py sets JAX up.) Comparisons of the
-normative integer kernels (K1, K2/K7, K5, K6) are exact. K3 is held to
+normative integer kernels (K1, K2/K7, K5, K6, K8) are exact. K3 is held to
 |r - r_plain| <= 1e-5 r[0] a row (its sums run in another order than
 torch's); K4, given the same r, to identical order and q and a cost within
 one float32 rounding, since it runs the plain version's IEEE operations in
@@ -198,6 +198,29 @@ def test_ksel_kernel_matches_plain(dev, B, k_max):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+GRID8 = [(b, n) for b in (1, 77, 1024) for n in (1, 100, 2048)]
+
+
+@pytest.mark.parametrize("B,N", GRID8, ids=_ids(GRID8))
+def test_quarter_counts_kernel_matches_plain(dev, B, N):
+    rng = np.random.default_rng(B * 5 + N)
+    e = rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int64)
+    e[::2] >>= rng.integers(0, 31, (len(e[::2]), 1))    # narrower rows
+    e = e.astype(np.int32)
+    e[::9] = -(1 << 31)                                  # every bit set
+    e[0, :2] = (-(1 << 31), (1 << 31) - 1)[:N]
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    edges = np.minimum(np.array([0, 1, 2, 3, 4, 5, 6, 7, N]), N)
+    nv[: min(B, len(edges))] = edges[: min(B, len(edges))]
+    et, nt = torch.from_numpy(e).to(dev), torch.from_numpy(nv).to(dev)
+    before = k_enc.launches["quarter_counts"]
+    got = ops_rice.quarter_counts(et, nt)
+    assert k_enc.launches["quarter_counts"] == before + 1
+    want = ops_rice.quarter_counts_reference(et, nt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_encode_kernel_wrappers_check_cuda_inputs(dev):
     x = torch.zeros((4, 4096), dtype=torch.int32, device=dev)
     c = torch.zeros((4, MAX_ORDER), dtype=torch.int32, device=dev)
@@ -210,6 +233,13 @@ def test_encode_kernel_wrappers_check_cuda_inputs(dev):
         ops_rice.ksel(c, o.cpu())
     with pytest.raises(TypeError):
         ops_analysis.analyze_from_r(c.float()[:, :33].contiguous(), o.long())
+    with pytest.raises(TypeError):
+        ops_rice.quarter_counts(x.long(), o)
+    with pytest.raises(ValueError):
+        ops_rice.quarter_counts(x.t(), torch.zeros(4096, dtype=torch.int32,
+                                                   device=dev))
+    with pytest.raises(ValueError):
+        ops_rice.quarter_counts(x, o.cpu())
 
 
 @pytest.mark.parametrize("bits", [16, 24, 32])
@@ -229,11 +259,39 @@ def test_encode_on_card_gives_input_back(dev, bits):
     for name in k_enc.launches:
         k_enc.launches[name] = 0
     buf = encode_wav(w, chunk_frames=2, device="cuda")
-    assert all(v > 0 for v in k_enc.launches.values()), k_enc.launches
+    # the default profile runs every encode kernel but K8
+    assert all(v > 0 for k, v in k_enc.launches.items()
+               if k != "quarter_counts"), k_enc.launches
+    assert k_enc.launches["quarter_counts"] == 0
     # the card's K3 rounds its sums in another order than the CPU's, so
     # the streams may part on near-tied orders: sizes stay within 0.5%
     cpu = encode_wav(w, chunk_frames=2, device="cpu")
     assert abs(len(buf) - len(cpu)) <= 0.005 * len(cpu)
+    for out in (decode_sela(buf, device="cuda"), ref_codec.decode_sela(buf)):
+        for a, b in zip(out.channels, chans):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_v2_encode_on_card_gives_input_back(dev):
+    from sela_tpu_torch.codec.decoder import decode_sela
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(4)
+    n = 2048 * 5 + 17
+    env = np.exp(-(np.arange(n) % 5292) / 660.0)       # a hit every 0.12 s
+    hits = env * 24000 * np.sin(0.0256 * np.arange(n))
+    chans = [np.clip(np.round(hits * g + rng.normal(0, 120, n) * (0.15 + env)),
+                     -32768, 32767).astype(np.int32) for g in (1.0, 0.9)]
+    w = WavData(44100, 16, chans)
+    for name in k_enc.launches:
+        k_enc.launches[name] = 0
+    buf = encode_wav(w, chunk_frames=2, device="cuda",
+                     profile=BitstreamProfile(residue_partition=4))
+    assert all(v > 0 for v in k_enc.launches.values()), k_enc.launches
+    assert k_enc.launches["quarter_counts"] == k_enc.launches["ksel"] == 3
     for out in (decode_sela(buf, device="cuda"), ref_codec.decode_sela(buf)):
         for a, b in zip(out.channels, chans):
             np.testing.assert_array_equal(a, b)

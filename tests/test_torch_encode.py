@@ -10,9 +10,11 @@
     near-ties);
 (d) the pinned-corpus compression ratio holds (tests/data/pinned_ratio.json,
     +2% allowed, as the JAX package's own gate);
-plus the profile checks: partitioned residues raise until K8 is ported,
-and BitstreamProfile's validation errors are the JAX package's. The
-encode_step comparison (b) is tests/test_torch_encode_step.py.
+plus the profile checks: the partitioned render leaves silence
+unpartitioned, and BitstreamProfile's validation errors are the JAX
+package's. The encode_step comparison (b) is
+tests/test_torch_encode_step.py; partitioned residues are
+tests/test_torch_partition.py.
 """
 import json
 import os
@@ -155,14 +157,10 @@ def test_pinned_corpus_ratio():
 
 # -------------------------------------------------------------- profile --
 
-def test_partitioned_residues_raise_until_k8():
-    w, _ = _case("16bit_stereo")
-    with pytest.raises(NotImplementedError, match="K8"):
-        encode_wav(w, profile=BitstreamProfile(residue_partition=4),
-                   device="cpu")
+def test_partitioned_render_of_silence_is_unpartitioned():
     x = torch.zeros((1, 2, 64), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K8"):
-        encode_step(x, torch.full((1,), 64, dtype=torch.int32), partition=4)
+    out = encode_step(x, torch.full((1,), 64, dtype=torch.int32), partition=4)
+    assert (out["k_res4"] == 0).all()     # silence: nothing to partition
 
 
 BAD_PROFILES = [dict(frame_size=16), dict(frame_size=4096), dict(max_order=0),
