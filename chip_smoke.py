@@ -5,16 +5,26 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
-1. device  — require CUDA, print the card's name, count and power limit;
+1. device  — require CUDA, print the card's name, count, power limit and
+             maximum SM clock;
 2. build   — build the seven CUDA kernel libraries and the native bit I/O
              library from this checkout's sources, all compilers started
              together; print the build seconds and what `-Xptxas -v` says;
 3. K1      — the LPC kernel (csrc/lpc.cu) against its plain PyTorch version
-             on the card, at 1,024 and 7,752 rows, exactly;
+             on the card, exactly: at 1,024 and 7,752 rows with mixed orders
+             (timed at 1,024), and with q = -64 and q = 63 at order 32 on
+             every row; then a sweep of 1 to 16,896 rows at order 32, time
+             against rows;
 4. IIR     — the IIR kernel (csrc/iir.cu) against its plain version on the
-             card at [1,024, 2,048]: (a) residues rendered by the oracle from
-             synthetic music, orders 0..32 mixed in every block; (b) uniform
-             random int32 residues, whose synthesis wraps (the K7 contract);
+             card, exactly: (a) [1,024, 2,048] residues rendered by the
+             oracle from synthetic music, orders 0..32 mixed in every block
+             (timed); (b) the same shape with uniform random int32 residues,
+             whose synthesis wraps (the K7 contract); (c) a sweep of 1 to
+             16,896 rows at order 32, time against rows; (d) the edges: 1,027
+             rows (not a multiple of a block's rows) at N = 1, 31, 32, 33,
+             1,000 and 2,047, with rows whose only coefficient is c_32 and
+             rows of 32 coefficients of +-2^23, under small and wrapping
+             residues;
 5. K5, K6  — FIR + Rice bit counts (csrc/fir_rice.cu) at [1,024, 2,048] on
              the CD track's frames (orders 0..32, tails, rows that trip the
              residue guard and rows on its edges) and the Rice k selection
@@ -37,7 +47,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              16-bit/44.1 kHz stereo track (the decode main path), a 30 s
              24-bit/96 kHz clip and a 10 s 32-bit clip holding INT32_MIN and
              INT32_MAX; the PCM must equal the input and K1 and the IIR kernel
-             must have run;
+             must have run; one profiled decode of the CD track gives the
+             device busy time (every profiled run also lists the device time
+             of each of the port's kernels);
 8. encode  — `sela_tpu_torch.codec.encoder.encode_wav` on the card (the
              encode main path) on the same three clips: each stream decodes
              on the card to the input (the 32-bit one through the oracle as
@@ -92,6 +104,7 @@ KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
 
 FRAME = 2048
 ROWS_MAIN = 1024    # rows of one default 512-frame stereo chunk
+ROW_SWEEP = (1, 128, ROWS_MAIN, 4096, 16896)   # K1 and IIR time against rows
 CAND_MAIN = 2048    # its L, R, mid and side candidate rows (K3, K4)
 
 
@@ -319,8 +332,12 @@ def phase_device(torch) -> tuple[str, str]:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
     log(f"device: {kind} (count {count}); torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
+        f"CUDA {torch.version.cuda}; max SM clock {clock}")
     log(smi)
     return kind, smi
 
@@ -355,18 +372,28 @@ def phase_lpc(torch, ops_coeffs) -> dict:
     log("== phase 3: K1 (lpc_from_q) against its plain version")
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
-    result = {}
-    for B in (ROWS_MAIN, 7752):
-        order = rng.permutation(np.arange(B) % 33).astype(np.int32)
-        q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
-        q.reshape(-1)[: 128 * 4] = np.tile(np.arange(-64, 64), 4)  # every q
+
+    def compare(q, order):
         qd = torch.from_numpy(q).to(dev)
         od = torch.from_numpy(order).to(dev)
         got = ops_coeffs.lpc_from_q(qd, od)
         want = ops_coeffs.lpc_from_q_reference(qd, od)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        exact = bool(torch.equal(got, want))
+        return qd, od, max_abs_err(got, want), bool(torch.equal(got, want))
+
+    result = {}
+    for B in (ROWS_MAIN, 7752):
+        order = rng.permutation(np.arange(B) % 33).astype(np.int32)
+        q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+        q.reshape(-1)[: 128 * 4] = np.tile(np.arange(-64, 64), 4)  # every q
+        qd, od, err, exact = compare(q, order)
+        for q_edge in (-64, 63):   # the extreme reflections at full order
+            _, _, err_e, exact_e = compare(np.full((B, 32), q_edge, np.int32),
+                                           np.full(B, 32, np.int32))
+            log(f"B={B} q={q_edge} order 32: exact={exact_e} "
+                f"max_abs_err={err_e}")
+            check(exact_e, f"K1 disagrees at B={B}, q={q_edge}, order 32")
+            err = max(err, err_e)
         ms = time_kernel(torch, lambda: ops_coeffs.lpc_from_q(qd, od), 200)
         plain = time_plain(torch,
                            lambda: ops_coeffs.lpc_from_q_reference(qd, od), 5)
@@ -376,7 +403,18 @@ def phase_lpc(torch, ops_coeffs) -> dict:
         check(exact, f"K1 disagrees with its plain version at B={B}")
         result[B] = dict(max_abs_err=err, exact=exact, ms=ms, plain_ms=plain,
                          bound_ms=bms, bound_by=by)
-    return result[ROWS_MAIN]
+
+    # time against rows at order 32 (B = 1 is one row's chain and the launch)
+    sweep = {}
+    for B in ROW_SWEEP:
+        order = np.full(B, 32, np.int32)
+        qd, od, err, exact = compare(
+            rng.integers(-64, 64, (B, 32)).astype(np.int32), order)
+        check(exact, f"K1 disagrees with its plain version at B={B}")
+        sweep[B] = time_kernel(torch, lambda: ops_coeffs.lpc_from_q(qd, od), 50)
+        log(f"rows {B} (order 32): exact={exact} kernel {sweep[B]:.5f} ms, "
+            f"bound {lpc_bound(order)[0]:.6f} ms")
+    return dict(result[ROWS_MAIN], rows_ms=sweep)
 
 
 def oracle_rows(ref_lpc, chans: list[np.ndarray], B: int, rng):
@@ -437,22 +475,50 @@ def phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng) -> dict:
     log(f"(b) random int32 residues: exact={exact_b} max_abs_err={err_b}")
     check(exact_b, "IIR kernel disagrees on wrapping int32 residues")
 
-    # (c) one thread a row: time against the row count (B = 1 is one row's
-    # serial chain; 16,896 rows fill 132 SMs with 128 threads each)
-    for B in (1, 128, ROWS_MAIN, 4096, 16896):
+    # (c) time against the row count at order 32 (B = 1 is one row's chain;
+    # 16,896 rows put 128 warps on each of 132 SMs)
+    sweep = {}
+    for B in ROW_SWEEP:
         qs = torch.from_numpy(rng.integers(-64, 64, (B, 32)).astype(np.int32))
         ords = torch.from_numpy(np.full(B, 32, np.int32))
         cs = ops_coeffs.lpc_from_q_reference(qs, ords).to(dev)
         es = torch.from_numpy(rng.integers(-4096, 4096, (B, FRAME))
                               .astype(np.int32)).to(dev)
-        qs, ords = qs.to(dev), ords.to(dev)
-        t_iir = time_kernel(torch, lambda: k_iir.iir_synthesize(es, cs), 10)
-        t_lpc = time_kernel(torch, lambda: ops_coeffs.lpc_from_q(qs, ords), 50)
-        log(f"(c) rows {B}: iir {t_iir:.4f} ms "
-            f"({t_iir * 1e6 / (B * FRAME):.3f} ns a row-sample), "
-            f"lpc (order 32) {t_lpc:.5f} ms")
-    return dict(max_abs_err=max(err, err_b), exact=exact and exact_b, ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+        sweep[B] = time_kernel(torch, lambda: k_iir.iir_synthesize(es, cs), 10)
+        log(f"(c) rows {B}: iir {sweep[B]:.4f} ms "
+            f"({sweep[B] * 1e6 / (B * FRAME):.3f} ns a row-sample), bound "
+            f"{iir_bound(np.full(B, 32), FRAME)[0]:.5f} ms")
+
+    # (d) the edges: ragged tiles and blocks, the history reaching a whole
+    # tile back (c_32 alone), |c| = 2^23 on every tap, wrapping residues
+    B = 1027
+    errs_d, exact_d = [], True
+    for n in (1, 31, 32, 33, 1000, FRAME - 1):
+        for lim in (1 << 12, 1 << 31):
+            order_d = rng.permutation(np.arange(B) % 33).astype(np.int32)
+            q_d = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+            c_d = ops_coeffs.lpc_from_q_reference(
+                torch.from_numpy(q_d), torch.from_numpy(order_d)).numpy()
+            c_d[1::16] = 0
+            c_d[1::16, 31] = rng.integers(-(1 << 23), (1 << 23) + 1,
+                                          len(c_d[1::16]))
+            c_d[1:49:16, 31] = (1 << 23, -(1 << 23), 1)
+            c_d[2::16] = (1 << 23) * rng.choice([-1, 1], (len(c_d[2::16]), 32))
+            e_d = rng.integers(-lim, lim, (B, n), dtype=np.int64)
+            cd_d = torch.from_numpy(c_d).to(dev)
+            ed_d = torch.from_numpy(e_d.astype(np.int32)).to(dev)
+            got_d = k_iir.iir_synthesize(ed_d, cd_d)
+            want_d = filters.iir_synthesize_reference(ed_d, cd_d)
+            torch.cuda.synchronize()
+            errs_d.append(max_abs_err(got_d, want_d))
+            same = bool(torch.equal(got_d, want_d))
+            exact_d = exact_d and same
+            log(f"(d) [{B}, {n}] residues within +-{lim}: exact={same} "
+                f"max_abs_err={errs_d[-1]}")
+    check(exact_d, "IIR kernel disagrees on an edge input")
+    return dict(max_abs_err=max(err, err_b, *errs_d),
+                exact=exact and exact_b and exact_d, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, rows_ms=sweep)
 
 
 def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
@@ -730,6 +796,13 @@ def log_profile(torch, fn, wall: float) -> None:
         log(f"  profiled run: device busy {busy:.3f} ms = idle share "
             f"{1 - busy / (wall * 1e3):.4f} of the timed run's wall; top: "
             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+        # the port's kernels (csrc/*.cu, each in an anonymous namespace),
+        # whether or not they made the top ten
+        ours = sorted((k.split("::")[1].split("(")[0], v)
+                      for k, v in by_name.items()
+                      if k.startswith("(anonymous namespace)::"))
+        log("  the port's kernels: "
+            + "; ".join(f"{k} {v:.4f} ms" for k, v in ours))
     else:
         log("  profiled run: the profiler saw no device time "
             "(device busy time not measured)")

@@ -1,4 +1,4 @@
-// K1 for Hopper: Q20 dequantize + integer Levinson, one thread per row.
+// K1 for Hopper: Q20 dequantize + integer Levinson, one warp a row.
 //
 // Replaces sela_tpu/kernels/coeffs.py::_lpc_kernel (wrapper
 // lpc_from_q_pallas). Per row r (a frame-channel):
@@ -11,92 +11,62 @@
 // kernel and to the plain torch version (ops/coeffs.py::lpc_from_q_reference)
 // for every int32 q.
 //
-// What bounds it on the card: by the work, bytes. Per row it reads 132
-// bytes and writes 128, against at most 496 multiply-adds of a 32x32->64
-// product, a fraction of a microsecond at the decode path's row counts
-// (1,024 to 7,752). In practice the time is one row's serial recursion:
-// 32 dependent steps, each a round of 64-bit products, shifts and clamps,
-// and every row fits in one wave of blocks, so the launch takes that chain's
-// latency whatever the row count (PERF.md). The TPU version's limb identity
-// for the 64-bit product is unnecessary: k * a (|k| <= 2^20, |a| <= 2^23) is
-// one mul.wide.s32 here.
+// What bounds it on the card: by the work, bytes (132 bytes read and 128
+// written a row, against at most 496 multiply-adds), a fraction of a
+// microsecond at the decode's 1,024 to 7,752 rows. In practice the time is
+// the launch and one row's recursion: 32 steps, each serial on the last.
+// Tensor cores do not apply: the steps are a chain of 32 exact integer
+// updates, each a rank-one reflection of one row's 32 values with its own k.
 //
-// Design: the recursion is serial in m but independent across rows, so one
-// thread owns one row and holds q, g and a in registers. Both loops are
-// fully unrolled so the reversed index a[m-2-i] is a compile-time register
-// name, never dynamically indexed local memory. Rows are staged through a
-// shared-memory tile so that global loads and stores are coalesced (a warp
-// moves one row's 128 contiguous bytes); the +1 column of padding makes the
-// per-thread row reads bank-conflict free.
+// Design: a warp owns a row, and lane i holds a_i and g_i (dequantized in
+// the prologue, off the chain). Step m broadcasts k = g_{m-1} with a
+// shuffle (it does not depend on a), fetches a_{m-2-i} with a second
+// shuffle, and lane i < m-1 does one mul.wide.s32 with the rounding
+// constant as its 64-bit addend, a funnel shift, a 32-bit subtract and a
+// clamp: |k| <= 2^20 and |a| <= 2^23 keep the shifted product within
+// 2^23 + 1 and a - d within int32, so only the product is 64-bit. The
+// dependent chain a step is six instructions: SHFL -> IMAD.WIDE ->
+// SHF.R.U64 -> VIADDMNMX (the subtract and the upper clamp) -> VIMNMX ->
+// SEL (lane i's new value). Steps past the row's order have k = 0 and change
+// nothing, so the warp stops at its order. q is read and c written one
+// row's 128 contiguous bytes a warp transaction.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int P = 32;        // MAX_ORDER
-constexpr int ROWS = 128;    // rows (= threads) per block
+constexpr int P = 32;          // MAX_ORDER = lanes
+constexpr int WARPS = 8;       // rows (= warps) per block
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int32_t G_LIM = 1 << 20;
-constexpr int64_t SAT_LO = -(1 << 23);
-constexpr int64_t SAT_HI = (1 << 23) - 1;
+constexpr int32_t SAT_LO = -(1 << 23);
+constexpr int32_t SAT_HI = (1 << 23) - 1;
 
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(WARPS * 32)
 lpc_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ order,
            int32_t* __restrict__ c, int n_rows) {
-  __shared__ int32_t tile[ROWS][P + 1];
-  const int row0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, n_rows - row0);
-  const int64_t base = static_cast<int64_t>(row0) * P;
-  for (int i = threadIdx.x; i < rows * P; i += ROWS) {
-    tile[i / P][i % P] = q[base + i];
-  }
-  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= n_rows) return;   // the whole warp: row is warp-uniform
+  const int64_t base = static_cast<int64_t>(row) * P;
+  const int steps = min(order[row], P);
+  const uint32_t qm = static_cast<uint32_t>(q[base + lane]);
+  const uint32_t sq = 128u * (qm + 64u) * (qm + 64u);
+  const uint32_t gm =
+      lane == 0 ? sq - (1u << 20) : (lane == 1 ? (1u << 20) - sq : qm * 16384u);
+  const int32_t g = max(-G_LIM, min(G_LIM, static_cast<int32_t>(gm)));
 
-  const int r = threadIdx.x;
-  if (r < rows) {
-    const int ord = order[row0 + r];
-    int32_t g[P];
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      const uint32_t qm = static_cast<uint32_t>(tile[r][m]);
-      uint32_t gm;
-      if (m == 0) {
-        gm = 128u * (qm + 64u) * (qm + 64u) - (1u << 20);
-      } else if (m == 1) {
-        gm = (1u << 20) - 128u * (qm + 64u) * (qm + 64u);
-      } else {
-        gm = qm * 16384u;
-      }
-      const int32_t gs = max(-G_LIM, min(G_LIM, static_cast<int32_t>(gm)));
-      g[m] = m < ord ? gs : 0;
-    }
-    int32_t a[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) a[i] = 0;
-#pragma unroll
-    for (int m = 1; m <= P; ++m) {
-      if (m > ord) break;  // later steps have k = 0: a stays as it is
-      const int32_t k = g[m - 1];
-      int32_t next[P];
-#pragma unroll
-      for (int i = 0; i < m - 1; ++i) {
-        const int64_t d =
-            (static_cast<int64_t>(k) * a[m - 2 - i] + (1 << 19)) >> 20;
-        const int64_t v = static_cast<int64_t>(a[i]) - d;
-        next[i] = static_cast<int32_t>(v < SAT_LO ? SAT_LO
-                                                  : (v > SAT_HI ? SAT_HI : v));
-      }
-#pragma unroll
-      for (int i = 0; i < m - 1; ++i) a[i] = next[i];
-      a[m - 1] = k;
-    }
-#pragma unroll
-    for (int m = 0; m < P; ++m) tile[r][m] = a[m];
+  int32_t a = 0;
+  for (int m = 1; m <= steps; ++m) {
+    const int32_t k = __shfl_sync(FULL, g, m - 1);
+    const int32_t am = __shfl_sync(FULL, a, (m - 2 - lane) & (P - 1));
+    const int64_t s = static_cast<int64_t>(k) * am + (1 << 19);
+    const int32_t d = static_cast<int32_t>(s >> 20);
+    const int32_t v = max(SAT_LO, min(SAT_HI, a - d));
+    a = lane < m - 1 ? v : (lane == m - 1 ? k : a);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * P; i += ROWS) {
-    c[base + i] = tile[i / P][i % P];
-  }
+  c[base + lane] = a;
 }
 
 }  // namespace
@@ -104,8 +74,8 @@ lpc_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ order,
 extern "C" int sela_lpc_from_q(const void* q, const void* order, void* c,
                                int n_rows, void* stream) {
   if (n_rows > 0) {
-    const int blocks = (n_rows + ROWS - 1) / ROWS;
-    lpc_kernel<<<blocks, ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (n_rows + WARPS - 1) / WARPS;
+    lpc_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(q), static_cast<const int32_t*>(order),
         static_cast<int32_t*>(c), n_rows);
   }

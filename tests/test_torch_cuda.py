@@ -43,9 +43,15 @@ def _plan(rng, B: int):
     return torch.from_numpy(q), torch.from_numpy(order)
 
 
-@pytest.mark.parametrize("B", [1, 77, 1024, 7752])
-def test_lpc_kernel_matches_plain(dev, B):
+LPC_CASES = [pytest.param(b, None, id=str(b)) for b in (1, 77, 1024, 7752)] + [
+    pytest.param(77, q, id=f"77-q{q}-order32") for q in (-64, 63)]
+
+
+@pytest.mark.parametrize("B,q_edge", LPC_CASES)
+def test_lpc_kernel_matches_plain(dev, B, q_edge):
     q, order = _plan(np.random.default_rng(B), B)
+    if q_edge is not None:   # the extreme reflections at full order
+        q[:], order[:] = q_edge, MAX_ORDER
     q, order = q.to(dev), order.to(dev)
     before = k_lpc.launches
     got = ops_coeffs.lpc_from_q(q, order)
@@ -54,12 +60,19 @@ def test_lpc_kernel_matches_plain(dev, B):
     assert torch.equal(got, ops_coeffs.lpc_from_q_reference(q, order))
 
 
-@pytest.mark.parametrize("B,N", [(1, 1), (77, 2048), (300, 100), (1024, 2048)])
+@pytest.mark.parametrize("B,N", [(1, 1), (77, 2048), (300, 100), (1024, 2048),
+                                 (77, 31), (77, 32), (77, 33)])
 @pytest.mark.parametrize("wrap", [False, True])
 def test_iir_kernel_matches_plain(dev, B, N, wrap):
     rng = np.random.default_rng(B + N)
     q, order = _plan(rng, B)
-    c = ops_coeffs.lpc_from_q_reference(q, order).to(dev)
+    c = ops_coeffs.lpc_from_q_reference(q, order)
+    # rows whose only coefficient is c_32: the history reaches a whole tile
+    # of 32 samples back
+    c[1::8] = 0
+    c[1::8, MAX_ORDER - 1] = torch.from_numpy(
+        rng.integers(-(1 << 23), (1 << 23) + 1, len(c[1::8])).astype(np.int32))
+    c = c.to(dev)
     lim = 1 << 31 if wrap else 1 << 12
     e = torch.from_numpy(rng.integers(-lim, lim, (B, N), dtype=np.int64)
                          .astype(np.int32)).to(dev)
