@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
              maximum SM clock;
 2. build   — build the seven CUDA kernel libraries and the native bit I/O
              library from this checkout's sources, all compilers started
-             together; print the build seconds and what `-Xptxas -v` says;
+             together; print the build seconds, what `-Xptxas -v` says and
+             each library's static SASS instruction mix (`cuobjdump`);
 3. K1      — the LPC kernel (csrc/lpc.cu) against its plain PyTorch version
              on the card, exactly: at 1,024 and 7,752 rows with mixed orders
              (timed at 1,024), and with q = -64 and q = 63 at order 32 on
@@ -33,15 +34,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5b. K8, K6 — the per-quarter bit counts (csrc/quarter_counts.cu) at [1,024,
              2,048], exactly: (a) phase 5's K5 residues with n_valid 2,048,
              2,000, 7, 5, 4, 3, 1 and 0 on some rows, (b) uniform int32
-             residues holding INT32_MIN and INT32_MAX; timed and bounded on
-             (a)'s residues at phase 5's n_valid; then K6 at its v2
-             shape, 6,144 rows (K5's counts, the coefficient counts and K8's
-             quarters of (a)), exactly;
+             residues holding INT32_MIN and INT32_MAX, (c) the edges: 1,027
+             rows with n_valid 1, 3, 4, 5, 127, 128, 129, 2,047, 2,048 and 0,
+             whose widest zigzag code has 1, 31 and 32 bits; timed and
+             bounded on (a)'s residues at phase 5's n_valid, warm (L2) and
+             cold (input rotated over 7 copies), and at 1, 132 and 1,024
+             rows; then K6 at its v2 shape, 6,144 rows (K5's counts, the
+             coefficient counts and K8's quarters of (a)), exactly;
 6. K3, K4  — autocorrelation (csrc/autocorr.cu) and Levinson / order
              selection (csrc/levinson.cu) at the main path's [2,048, 2,048]
              candidate rows of the CD track: K3 within 1e-5 of r[0] a row
-             (and the conv1d yardstick with it), K4 given K3's r identical
-             in order and q on every row;
+             (and the conv1d yardstick with it), also on the edges (1,027
+             rows at N = 1, 31, 32, 33, 255, 256, 257 and 2,047 with
+             all-zero, INT32_MIN and +-(2^24 - 1) rows), timed warm and
+             cold (4 copies) and at 1, 132 and 2,048 rows; K4 given K3's r
+             identical in order and q on every row;
 7. decode  — encode with the port's oracle and decode with
              `sela_tpu_torch.codec.decoder.decode_sela` on the card: a 3-minute
              16-bit/44.1 kHz stereo track (the decode main path), a 30 s
@@ -63,13 +70,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
              stream and at most 1% larger than the oracle's v2 stream, and
              must decode to the input through the oracle too; K8 and K6 run
              once a chunk; one profiled encode of each clip;
-10. the `kernels` JSON line, then the card's name and power limit, then the
-   last line `{"ok": true, "device": {...}}`.
+10. each kernel's share of its bound, the `kernels` JSON line, then the
+   card's name and power limit, then the last line
+   `{"ok": true, "device": {...}}`.
 
 Comparisons of the normative integer kernels are exact (max_abs_err 0); K3's
 tolerance and K4's rule are stated in phase 6. Kernel times are CUDA-event
 times of many back-to-back launches queued behind a device-side sleep, so
-host launch overhead is not in them.
+host launch overhead is not in them; "warm" times find the input in the L2
+cache (back to back on one input), "cold" ones rotate over copies that
+together exceed it. A kernel's share is its bound over its time.
 """
 from __future__ import annotations
 
@@ -229,6 +239,19 @@ def time_kernel(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_kernel_cold(torch, fn, inputs: list, iters: int) -> float:
+    """Device ms per call of `fn(inp)` with the input rotated over `inputs`,
+    copies enough to exceed the 50 MB L2 between two uses of one copy, so
+    each call reads its input from HBM as a caller with a cold cache would."""
+    it = iter(range(1 << 30))
+    return time_kernel(torch, lambda: fn(inputs[next(it) % len(inputs)]), iters)
+
+
+def share(bound: float, ms: float) -> float:
+    """The kernel's share of its bound: bound time over measured time."""
+    return bound / ms if ms > 0 else 0.0
+
+
 def time_plain(torch, fn, iters: int) -> float:
     """ms per call of a plain PyTorch version, host dispatch included (it is
     many small operations; that is its real cost)."""
@@ -342,7 +365,21 @@ def phase_device(torch) -> tuple[str, str]:
     return kind, smi
 
 
-def phase_build(k_lpc, k_iir, k_enc, bitio, build_log) -> None:
+def sass_mix(cuobjdump: str, lib: str) -> str:
+    """The static instruction mix of a library's kernels, from
+    `cuobjdump -sass`: the ten most frequent opcodes (modifiers dropped)."""
+    import re
+    from collections import Counter
+
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    ops = Counter(m.group(1).split(".")[0] for m in re.finditer(
+        r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", sass))
+    return ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
+
+
+def phase_build(k_lpc, k_iir, k_enc, bitio, build_log, build_dir,
+                nvcc) -> None:
     log("== phase 2: build")
 
     def timed(fn):
@@ -360,12 +397,16 @@ def phase_build(k_lpc, k_iir, k_enc, bitio, build_log) -> None:
         secs = {name: f.result() for name, f in futs.items()}
     log(f"built in {time.perf_counter() - t0:.1f} s (in parallel): "
         + ", ".join(f"lib{k}.so {v:.1f} s" for k, v in secs.items()))
+    cuobjdump = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
     for name in jobs:   # -Xptxas -v: registers, shared memory, spills
         if name == "selabitio":
             continue
         for line in build_log(name).splitlines():
             if line.strip():
                 log(f"  {name}: {line.strip()}")
+        if os.path.exists(cuobjdump):
+            log(f"  {name} SASS (static counts): "
+                f"{sass_mix(cuobjdump, os.path.join(build_dir, f'lib{name}.so'))}")
 
 
 def phase_lpc(torch, ops_coeffs) -> dict:
@@ -608,14 +649,33 @@ def phase_quarter_counts(torch, ops_rice, render, rng):
     e_b[::37] = -(1 << 31)
     e_b[1::37, :2] = (-(1 << 31), (1 << 31) - 1)
     e_b = torch.from_numpy(e_b).to(dev)
+    # (c) the edges: 1,027 rows (not a multiple of anything the kernel
+    # tiles by), n_valid on the quarters' and the lanes' edges, rows whose
+    # widest zigzag code has 1, 31 and 32 bits
+    B = 1027
+    nv_c = torch.from_numpy(np.resize(np.array(
+        [1, 3, 4, 5, 127, 128, 129, FRAME - 1, FRAME, 0], np.int32), B)).to(dev)
+    wide = rng.integers(-(1 << 31), 1 << 31, (B, FRAME), dtype=np.int64)
+    edges = {   # rows, and the residue whose zigzag code is the widest
+        "c, widest code 1 bit": (rng.integers(-1, 1, (B, FRAME)), -1),
+        "c, widest code 31 bits": (np.clip(wide, -(1 << 30), (1 << 30) - 1),
+                                   -(1 << 30)),
+        "c, widest code 32 bits": (wide, -(1 << 31)),
+    }
+    for rows, widest in edges.values():
+        rows[::3, 5] = widest               # on every third row
     errs, exact = [], True
-    for name, e in (("a", e_a), ("b", e_b)):
-        got = ops_rice.quarter_counts(e, nv_a)
-        want = ops_rice.quarter_counts_reference(e, nv_a)
+    cases = [("a", e_a, nv_a), ("b", e_b, nv_a)] + [
+        (name, torch.from_numpy(rows.astype(np.int32)).to(dev), nv_c)
+        for name, (rows, _) in edges.items()]
+    for name, e, nv_e in cases:
+        got = ops_rice.quarter_counts(e, nv_e)
+        want = ops_rice.quarter_counts_reference(e, nv_e)
         torch.cuda.synchronize()
         errs.append(max_abs_err(got, want))
-        exact = exact and bool(torch.equal(got, want))
-        log(f"K8 ({name}) [{ROWS_MAIN}, {FRAME}]: exact={exact} "
+        same = bool(torch.equal(got, want))
+        exact = exact and same
+        log(f"K8 ({name}) {list(e.shape)}: exact={same} "
             f"max_abs_err={errs[-1]}")
         if name == "a":
             pc4 = got
@@ -623,14 +683,28 @@ def phase_quarter_counts(torch, ops_rice, render, rng):
     # shortened rows are for the exactness check only
     nv_main = torch.from_numpy(render["nv"]).to(dev)
     ms = time_kernel(torch, lambda: ops_rice.quarter_counts(e_a, nv_main), 200)
+    # cold: 7 copies of e (8.4 MB each) exceed the L2 between two uses
+    copies = [e_a.clone() for _ in range(7)]
+    cold = time_kernel_cold(
+        torch, lambda e: ops_rice.quarter_counts(e, nv_main), copies, 200)
+    del copies
     plain = time_plain(
         torch, lambda: ops_rice.quarter_counts_reference(e_a, nv_main), 3)
     bms, by = quarter_counts_bound(e_a.cpu().numpy(), render["nv"])
-    log(f"K8 [{ROWS_MAIN}, {FRAME}] at phase 5's n_valid: kernel {ms:.5f} ms, "
-        f"plain {plain:.3f} ms, bound {bms:.5f} ms ({by})")
+    rows_ms = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, ROWS_MAIN):
+        e_r, nv_r = e_a[:b].contiguous(), nv_main[:b].contiguous()
+        rows_ms[b] = time_kernel(
+            torch, lambda: ops_rice.quarter_counts(e_r, nv_r), 200)
+    log(f"K8 [{ROWS_MAIN}, {FRAME}] at phase 5's n_valid: kernel {ms:.5f} ms "
+        f"(warm L2), {cold:.5f} ms (cold, 7 copies), plain {plain:.3f} ms, "
+        f"bound {bms:.5f} ms ({by}): share {share(bms, ms):.3f} warm, "
+        f"{share(bms, cold):.3f} cold; rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows_ms.items()))
     check(exact, "K8 disagrees with its plain version")
-    k8 = dict(max_abs_err=max(errs), exact=exact, ms=ms, plain_ms=plain,
-              bound_ms=bms, bound_by=by)
+    k8 = dict(max_abs_err=max(errs), exact=exact, ms=ms, cold_ms=cold,
+              plain_ms=plain, bound_ms=bms, bound_by=by,
+              cold_share=share(bms, cold), rows_ms=rows_ms)
 
     # K6 as the v2 render calls it: residue, coefficient and quarter rows
     cols = torch.arange(32, device=dev)[None, :]
@@ -675,15 +749,42 @@ def phase_analysis(torch, ops_analysis, pipeline, chans):
     r_plain = ops_analysis.autocorr_reference(x)
     torch.cuda.synchronize()
 
-    def rel_err(a):
-        d = (a.double() - r_plain.double()).abs().max(dim=1).values
-        r0 = r_plain[:, 0].double()
+    def rel_err(a, want=r_plain):
+        """max |a - want| / want[0] over rows (any difference on a row whose
+        r[0] is 0 counts as huge)"""
+        d = (a.double() - want.double()).abs().max(dim=1).values
+        r0 = want[:, 0].double()
         return float(torch.where(r0 > 0, d / r0.clamp(min=1e-300),
                                  d * 1e300).max())
 
     rel3 = rel_err(r)
     err3 = float((r - r_plain).abs().max())
+    # the edges: 1,027 rows at lengths on the tilings' edges (a lane's 16
+    # samples, a pass's 512, the 128-bit groups: N % 4 != 0 takes the scalar
+    # path), with all-zero rows, INT32_MIN rows and rows of +-(2^24 - 1)
+    rng = np.random.default_rng(6)
+    rel_edges = []
+    for n in (1, 31, 32, 33, 255, 256, 257, FRAME - 1):
+        xe = rng.integers(-(1 << 23), 1 << 23, (1027, n)).astype(np.int32)
+        xe[0::7] = 0
+        xe[1::7] = -(1 << 31)
+        xe[2::7] = (1 << 24) - 1
+        xe[3::7, ::2], xe[3::7, 1::2] = (1 << 24) - 1, -((1 << 24) - 1)
+        xe = torch.from_numpy(xe).to(dev)
+        rel_e = rel_err(ops_analysis.autocorr(xe),
+                        ops_analysis.autocorr_reference(xe))
+        rel_edges.append(rel_e)
+        log(f"K3 edge [1027, {n}] (zero, INT32_MIN and +-(2^24 - 1) rows): "
+            f"max |dr|/r0 {rel_e:.3g}")
     ms3 = time_kernel(torch, lambda: ops_analysis.autocorr(x), 50)
+    # cold: 4 copies of x (16.8 MB each) exceed the L2 between two uses
+    copies = [x.clone() for _ in range(4)]
+    cold3 = time_kernel_cold(torch, ops_analysis.autocorr, copies, 50)
+    del copies
+    rows3 = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, CAND_MAIN):
+        x_r = x[:b].contiguous()
+        rows3[b] = time_kernel(torch, lambda: ops_analysis.autocorr(x_r), 50)
     plain3 = time_plain(torch, lambda: ops_analysis.autocorr_reference(x), 5)
     xf = x.float() * (1.0 / 32768.0)
 
@@ -698,15 +799,20 @@ def phase_analysis(torch, ops_analysis, pipeline, chans):
         rel_lib = rel_err(conv())
         lib3 = time_kernel(torch, conv, 10)
     bms3, by3 = autocorr_bound(CAND_MAIN, FRAME)
-    log(f"K3 [{CAND_MAIN}, {FRAME}]: max |dr|/r0 {rel3:.3g} (tolerance 1e-5), "
-        f"max |dr| {err3:.3g}; kernel {ms3:.4f} ms, plain {plain3:.3f} ms, "
-        f"conv1d {lib3:.4f} ms (max |dr|/r0 {rel_lib:.3g}"
+    log(f"K3 [{CAND_MAIN}, {FRAME}]: max |dr|/r0 {rel3:.3g} (tolerance 1e-5; "
+        f"edges {max(rel_edges):.3g}), max |dr| {err3:.3g}; kernel "
+        f"{ms3:.5f} ms (warm L2), {cold3:.5f} ms (cold, 4 copies), plain "
+        f"{plain3:.3f} ms, conv1d {lib3:.4f} ms (max |dr|/r0 {rel_lib:.3g}"
         f"{'' if rel_lib <= 1e-5 else ', outside 1e-5'}), bound "
-        f"{bms3:.5f} ms ({by3})")
-    check(rel3 <= 1e-5, "K3 is outside its tolerance")
-    k3 = dict(max_abs_err=err3, max_rel_err_r0=rel3, tolerance="1e-5 r0",
-              ms=ms3, plain_ms=plain3, bound_ms=bms3, bound_by=by3,
-              library_ms=lib3, library_max_rel_err_r0=rel_lib)
+        f"{bms3:.5f} ms ({by3}): share {share(bms3, ms3):.3f} warm, "
+        f"{share(bms3, cold3):.3f} cold; rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows3.items()))
+    check(rel3 <= 1e-5 and max(rel_edges) <= 1e-5,
+          "K3 is outside its tolerance")
+    k3 = dict(max_abs_err=err3, max_rel_err_r0=max(rel3, *rel_edges),
+              tolerance="1e-5 r0", ms=ms3, cold_ms=cold3, plain_ms=plain3,
+              bound_ms=bms3, bound_by=by3, cold_share=share(bms3, cold3),
+              rows_ms=rows3, library_ms=lib3, library_max_rel_err_r0=rel_lib)
 
     got = ops_analysis.analyze_from_r(r, nv, 32)      # the same r for both
     want = ops_analysis.analyze_from_r_reference(r, nv, 32)
@@ -911,10 +1017,10 @@ def main() -> int:
     from sela_tpu_torch.ref import container
     from sela_tpu_torch.ref import lpc as ref_lpc
     from sela_tpu_torch.ref.wav import WavData
-    from sela_tpu_torch.utils.build import build_log
+    from sela_tpu_torch.utils.build import BUILD_DIR, build_log, nvcc
     from sela_tpu_torch.utils.metrics import Metrics
 
-    phase_build(k_lpc, k_iir, k_enc, bitio, build_log)
+    phase_build(k_lpc, k_iir, k_enc, bitio, build_log, BUILD_DIR, nvcc)
     lpc = phase_lpc(torch, ops_coeffs)
 
     t0 = time.perf_counter()
@@ -974,6 +1080,7 @@ def main() -> int:
     def entry(name, source, replaces, res, launches, library_ms=None, **extra):
         return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches, **res,
+                    share=share(res["bound_ms"], res["ms"]),
                     library_ms=library_ms, **extra)
 
     kernels = [
@@ -1002,6 +1109,10 @@ def main() -> int:
               "sela_tpu/kernels/encode.py:401", k8,
               enc_v2["launches"]["quarter_counts"]),
     ]
+    log("share of the bound (bound ms / kernel ms, warm L2): " + ", ".join(
+        f"{k['name']} {k['share']:.3f}" for k in kernels)
+        + "; cold: " + ", ".join(f"{k['name']} {k['cold_share']:.3f}"
+                                 for k in kernels if "cold_share" in k))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -43,7 +43,8 @@ def autocorr_reference(x: torch.Tensor) -> torch.Tensor:
     float32 autocorrelation of x / 32768 at lags 0..32."""
     xf = x.to(torch.float32) * (1.0 / 32768.0)
     n = x.shape[-1]
-    cols = [(xf[:, : n - lag] * xf[:, lag:]).sum(dim=-1) for lag in range(LAGS)]
+    cols = [(xf[:, : max(n - lag, 0)] * xf[:, lag:]).sum(dim=-1)
+            for lag in range(LAGS)]
     return torch.stack(cols, dim=-1)
 
 

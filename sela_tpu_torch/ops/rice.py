@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..format import RESIDUE_PARTS, RICE_K_ESCAPE, RICE_K_MAX
+from ..format import FRAME_SIZE, RESIDUE_PARTS, RICE_K_ESCAPE, RICE_K_MAX
 from ..kernels.encode import ksel_cuda, quarter_counts_cuda
 
 NBITS = 32   # columns of a bit-count row: bit j of the 32-bit zigzag value
@@ -135,8 +135,8 @@ def quarter_counts_reference(e: torch.Tensor,
 
 
 def quarter_counts(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
-    """e [B, N] int32 + n_valid [B] int32 -> [B, 4, 32] int32 per-quarter
-    bit counts.
+    """e [B, N] int32 (N <= 2048) + n_valid [B] int32 -> [B, 4, 32] int32
+    per-quarter bit counts.
 
     On a CPU tensor this runs the plain version; on a CUDA tensor it
     launches the K8 kernel (csrc/quarter_counts.cu) or raises — there is no
@@ -145,9 +145,11 @@ def quarter_counts(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     if e.dtype != torch.int32 or n_valid.dtype != torch.int32:
         raise TypeError(f"quarter_counts needs int32 e and n_valid, got "
                         f"{e.dtype} and {n_valid.dtype}")
-    if e.dim() != 2 or n_valid.shape != (e.shape[0],):
-        raise ValueError(f"quarter_counts needs e [B, N] and n_valid [B], got "
-                         f"{tuple(e.shape)} and {tuple(n_valid.shape)}")
+    if (e.dim() != 2 or e.shape[1] > FRAME_SIZE
+            or n_valid.shape != (e.shape[0],)):
+        raise ValueError(f"quarter_counts needs e [B, N <= {FRAME_SIZE}] and "
+                         f"n_valid [B], got {tuple(e.shape)} and "
+                         f"{tuple(n_valid.shape)}")
     if not (e.is_contiguous() and n_valid.is_contiguous()):
         raise ValueError("quarter_counts needs contiguous e and n_valid")
     if e.device != n_valid.device:

@@ -60,6 +60,26 @@ def test_autocorr_plain_matches_pallas_interpret(rng, signal_factory):
     assert (np.abs(got - want64).max(axis=1) <= 1e-5 * want64[:, 0]).all()
 
 
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 2047])
+def test_autocorr_plain_matches_pallas_interpret_at_edges(rng, signal_factory,
+                                                          n):
+    """Rows as long as the CUDA kernel's tiling edges (a lane's 16 samples,
+    a pass's 512, groups of 4), with all-zero, INT32_MIN and +-(2^24 - 1)
+    rows; below 33 samples some lags have no product at all."""
+    x, _ = _rows(rng, signal_factory, 40)
+    x = np.ascontiguousarray(x[:, :n])
+    x[0::7] = 0
+    x[1::7] = -(1 << 31)
+    x[2::7] = (1 << 24) - 1
+    x[3::7, ::2], x[3::7, 1::2] = (1 << 24) - 1, -((1 << 24) - 1)
+    got = port_analysis.autocorr(torch.from_numpy(x)).numpy()
+    want = np.asarray(autocorr_pallas(jnp.asarray(x), interpret=True))
+    assert got.shape == (40, MAX_ORDER + 1)
+    err = np.abs(got.astype(np.float64) - want).max(axis=1)
+    assert (err <= 1e-5 * want[:, 0]).all(), err / np.maximum(want[:, 0], 1e-30)
+    assert not got[0::7].any() and not got[:, n:].any()   # no products there
+
+
 @functools.lru_cache(maxsize=None)
 def _levinson_jax(max_order: int):
     return functools.partial(_levinson_tiles, max_order=max_order,

@@ -135,12 +135,21 @@ def _ids(grid):
 
 
 GRID = [(b, n) for b in (1, 77, 2048) for n in (1, 100, 2048)]
+# K3's edges: 1,027 rows at lengths on its tilings' edges (a lane's 16
+# samples, a pass's 512; N % 4 != 0 takes the scalar staging path)
+AC_EDGES = [(1027, n) for n in (1, 31, 32, 33, 255, 256, 257, 2047)]
 
 
-@pytest.mark.parametrize("B,N", GRID, ids=_ids(GRID))
+@pytest.mark.parametrize("B,N", GRID + AC_EDGES, ids=_ids(GRID + AC_EDGES))
 def test_autocorr_kernel_matches_plain(dev, B, N):
     rng = np.random.default_rng(B * 7 + N)
-    x = torch.from_numpy(_audio(rng, B, N, bits=24)).to(dev)
+    x = _audio(rng, B, N, bits=24)
+    if (B, N) in AC_EDGES:   # all-zero, INT32_MIN and +-(2^24 - 1) rows
+        x[0::7] = 0
+        x[1::7] = -(1 << 31)
+        x[2::7] = (1 << 24) - 1
+        x[3::7, ::2], x[3::7, 1::2] = (1 << 24) - 1, -((1 << 24) - 1)
+    x = torch.from_numpy(x).to(dev)
     before = k_enc.launches["autocorr"]
     got = ops_analysis.autocorr(x)
     assert k_enc.launches["autocorr"] == before + 1
@@ -212,19 +221,32 @@ def test_ksel_kernel_matches_plain(dev, B, k_max):
 
 
 GRID8 = [(b, n) for b in (1, 77, 1024) for n in (1, 100, 2048)]
+# K8's edges: 1,027 rows, n_valid on the quarters' and the lanes' edges,
+# rows whose widest zigzag code has 1, 31 and 32 bits (and the residue
+# that has it)
+QC_WIDTHS = {1: -1, 31: -(1 << 30), 32: -(1 << 31)}
+QC_CASES = [pytest.param(b, n, None, id=f"B{b}-N{n}") for b, n in GRID8] + [
+    pytest.param(1027, 2048, w, id=f"B1027-N2048-width{w}") for w in QC_WIDTHS]
 
 
-@pytest.mark.parametrize("B,N", GRID8, ids=_ids(GRID8))
-def test_quarter_counts_kernel_matches_plain(dev, B, N):
-    rng = np.random.default_rng(B * 5 + N)
+@pytest.mark.parametrize("B,N,width", QC_CASES)
+def test_quarter_counts_kernel_matches_plain(dev, B, N, width):
+    rng = np.random.default_rng(B * 5 + N + (width or 0))
     e = rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int64)
-    e[::2] >>= rng.integers(0, 31, (len(e[::2]), 1))    # narrower rows
-    e = e.astype(np.int32)
-    e[::9] = -(1 << 31)                                  # every bit set
-    e[0, :2] = (-(1 << 31), (1 << 31) - 1)[:N]
-    nv = rng.integers(0, N + 1, B).astype(np.int32)
-    edges = np.minimum(np.array([0, 1, 2, 3, 4, 5, 6, 7, N]), N)
-    nv[: min(B, len(edges))] = edges[: min(B, len(edges))]
+    if width is None:
+        e[::2] >>= rng.integers(0, 31, (len(e[::2]), 1))    # narrower rows
+        e = e.astype(np.int32)
+        e[::9] = -(1 << 31)                                  # every bit set
+        e[0, :2] = (-(1 << 31), (1 << 31) - 1)[:N]
+        nv = rng.integers(0, N + 1, B).astype(np.int32)
+        edges = np.minimum(np.array([0, 1, 2, 3, 4, 5, 6, 7, N]), N)
+        nv[: min(B, len(edges))] = edges[: min(B, len(edges))]
+    else:
+        widest = QC_WIDTHS[width]
+        e = np.clip(e, widest, -widest - 1).astype(np.int32)
+        e[::3, 5] = widest
+        nv = np.resize(np.array([1, 3, 4, 5, 127, 128, 129, 2047, 2048, 0],
+                                np.int32), B)
     et, nt = torch.from_numpy(e).to(dev), torch.from_numpy(nv).to(dev)
     before = k_enc.launches["quarter_counts"]
     got = ops_rice.quarter_counts(et, nt)
@@ -253,6 +275,8 @@ def test_encode_kernel_wrappers_check_cuda_inputs(dev):
                                                    device=dev))
     with pytest.raises(ValueError):
         ops_rice.quarter_counts(x, o.cpu())
+    with pytest.raises(ValueError):   # rows over 2,048 samples
+        ops_rice.quarter_counts(x, o)
 
 
 @pytest.mark.parametrize("bits", [16, 24, 32])

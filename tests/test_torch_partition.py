@@ -114,6 +114,34 @@ def test_quarter_counts_plain_matches_masked_bit_counts(N):
     assert (got[3, 0] == 0).all() and (got[3, 1:] == 1).all()
 
 
+@pytest.mark.parametrize("width", [1, 31, 32])
+def test_quarter_counts_plain_matches_pallas_at_edges(width):
+    """n_valid on the CUDA kernel's quarter and lane edges, rows whose
+    widest zigzag code has `width` bits (the residue with it on every third
+    row), 70 rows (not a multiple of the Pallas kernel's 64)."""
+    rng = np.random.default_rng(width)
+    widest = {1: -1, 31: -(1 << 30), 32: I32_MIN}[width]
+    e = rng.integers(I32_MIN, I32_MAX + 1, (70, S), dtype=np.int64)
+    e = np.clip(e, widest, -widest - 1).astype(np.int32)
+    e[::3, 5] = widest
+    nv = np.resize(np.array([1, 3, 4, 5, 127, 128, 129, S - 1, S, 0],
+                            np.int32), 70)
+    got = port_rice.quarter_counts(torch.from_numpy(e), torch.from_numpy(nv))
+    want = quarter_counts_pallas(jnp.asarray(e), jnp.asarray(nv),
+                                 interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    counts = got.numpy()
+    assert not counts[:, :, width:].any() and counts[0::3, :, width - 1].any()
+
+
+def test_quarter_counts_rejects_rows_over_frame_size():
+    """The CUDA kernel's per-lane counters hold a quarter of at most 2,048
+    samples, so the wrapper refuses longer rows on every device."""
+    e = torch.zeros((2, S + 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        port_rice.quarter_counts(e, torch.full((2,), S + 1, dtype=torch.int32))
+
+
 def test_quarter_counts_rejects_bad_inputs():
     e = torch.zeros((4, 64), dtype=torch.int32)
     n = torch.zeros(4, dtype=torch.int32)
