@@ -28,9 +28,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
              residues;
 5. K5, K6  — FIR + Rice bit counts (csrc/fir_rice.cu) at [1,024, 2,048] on
              the CD track's frames (orders 0..32, tails, rows that trip the
-             residue guard and rows on its edges) and the Rice k selection
+             residue guard and rows on its edges), timed warm and cold (x
+             rotated over 4 copies, each call's e kept alive), at 1, 132
+             and 1,024 rows, and against its taps (every row with 0, 8, 16,
+             24 or 32 taps, its sums on the FP64 pipe and, with a
+             coefficient of 2^26, as IMAD.WIDE); K5 on the edges (1,027
+             rows at N = 1, 31, 32, 33, 63, 64, 65, 1,000 and 2,047: orders
+             on every tap tier's edge, +-2^23 coefficients, INT32_MIN/
+             INT32_MAX and full-scale rows, both guard edges, n_valid 0, 1
+             and N with nonzero samples past it); and the Rice k selection
              (csrc/ksel.cu) at 2,048 rows (K5's counts, random and
-             escape-forcing counts; k_max 30, 7, 0), exactly;
+             escape-forcing counts; k_max 30, 7, 0); all exactly;
 5b. K8, K6 — the per-quarter bit counts (csrc/quarter_counts.cu) at [1,024,
              2,048], exactly: (a) phase 5's K5 residues with n_valid 2,048,
              2,000, 7, 5, 4, 3, 1 and 0 on some rows, (b) uniform int32
@@ -48,7 +56,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
              rows at N = 1, 31, 32, 33, 255, 256, 257 and 2,047 with
              all-zero, INT32_MIN and +-(2^24 - 1) rows), timed warm and
              cold (4 copies) and at 1, 132 and 2,048 rows; K4 given K3's r
-             identical in order and q on every row;
+             identical in order and q on every row and its cost within rtol
+             1.2e-7, timed at 1, 132 and 2,048 rows, and on the edges (1,027
+             rows with r = 0, r0 = 0 and r0 < 0 rows and n_valid 0, at
+             max_order 1, 8 and 32);
 7. decode  — encode with the port's oracle and decode with
              `sela_tpu_torch.codec.decoder.decode_sela` on the card: a 3-minute
              16-bit/44.1 kHz stereo track (the decode main path), a 30 s
@@ -107,7 +118,9 @@ LEVINSON_STEP_OPS = MAC64_OPS + 6   # + round, shift, subtract, clamp (64-bit)
 IIR_SAMPLE_OPS = 4                  # round, shift, low-32 add of e per sample
 FIR_SAMPLE_OPS = 10                 # round, shift, subtract (64-bit), guard,
                                     # select, zigzag per valid sample
-BITCOUNT_OPS = 2                    # shift-and + add per bit a sample counts
+BITCOUNT_OPS = 3                    # shift, mask and add of one word of 8
+                                    # packed nibble counters, per sample and
+                                    # 8 bits of the row's widest code
 QUARTER_SAMPLE_OPS = 8              # zigzag (3), quarter index (3 compares,
                                     # 2 adds) per valid sample
 KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
@@ -287,18 +300,24 @@ def iir_bound(order: np.ndarray, n: int) -> tuple[float, str]:
     return bound_ms(B * (n * 4 + 32 * 4 + n * 4), ops)
 
 
+def bitcount_ops(e: np.ndarray, nv: np.ndarray) -> np.ndarray:
+    """Lane operations a sample for the per-bit counts of each row: one
+    packed word of 8 nibble counters (a shift, a mask and an add) per 8 bits
+    of the row's widest zigzag code (higher counts are zero)."""
+    return BITCOUNT_OPS * -(-zigzag_widths(e, nv) // 8)
+
+
 def fir_rice_bound(c: np.ndarray, nv: np.ndarray, e: np.ndarray):
     """K5 on these rows: reads x up to n_valid, c, order and n_valid, writes
     e (the whole row), eff_order and counts. Per valid sample: a 64-bit
     multiply-add per tap below the row's highest nonzero coefficient, the
-    epilogue, and a shift-and-add per bit up to the row's widest zigzag code
-    (higher counts are zero)."""
+    epilogue, and the packed bit counts up to the row's widest code."""
     B, N = e.shape
     nz = c != 0
     taps = np.where(nz.any(axis=1), 32 - np.argmax(nz[:, ::-1], axis=1), 0)
     valid = np.clip(nv.astype(np.int64), 0, N)
     ops = (valid * (MAC64_OPS * taps + FIR_SAMPLE_OPS
-                    + BITCOUNT_OPS * zigzag_widths(e, valid))).sum()
+                    + bitcount_ops(e, valid))).sum()
     return bound_ms(valid.sum() * 4 + B * (N * 4 + 2 * 32 * 4 + 3 * 4), ops)
 
 
@@ -313,12 +332,11 @@ def zigzag_widths(e: np.ndarray, nv: np.ndarray) -> np.ndarray:
 def quarter_counts_bound(e: np.ndarray, nv: np.ndarray) -> tuple[float, str]:
     """K8 on these rows: reads e up to n_valid (the counts do not depend on
     what lies past it) and n_valid, writes [4, 32] counts a row. Per valid
-    sample: the zigzag and the quarter index, and a shift-and-add per bit up
-    to the row's widest zigzag code (higher counts are zero)."""
+    sample: the zigzag and the quarter index, and the packed bit counts up
+    to the row's widest code."""
     B, N = e.shape
     valid = np.clip(nv.astype(np.int64), 0, N)
-    ops = (valid * (QUARTER_SAMPLE_OPS
-                    + BITCOUNT_OPS * zigzag_widths(e, valid))).sum()
+    ops = (valid * (QUARTER_SAMPLE_OPS + bitcount_ops(e, valid))).sum()
     return bound_ms(valid.sum() * 4 + B * (4 + 4 * 32 * 4), ops)
 
 
@@ -562,6 +580,95 @@ def phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng) -> dict:
                 bound_ms=bms, bound_by=by, rows_ms=sweep)
 
 
+FIR_EDGE_N = (1, 31, 32, 33, 63, 64, 65, 1000, FRAME - 1)
+FIR_EDGE_ORDERS = (0, 1, 8, 9, 16, 17, 24, 25, 32)   # K5's tap tiers' edges
+
+
+def fir_edge_rows(torch, ops_coeffs, rng, B: int, n: int):
+    """K5's edge rows, [B, n] (numpy x, c, order, n_valid): orders on every
+    tap tier's edges; every 11th row +-2^23 on each tap up to its order;
+    16-bit, 8-bit and full-scale int32 noise, smooth int32 walks and rows
+    alternating INT32_MIN and INT32_MAX; n_valid N, 0, 1 and between, with
+    nonzero samples past it; rows 0-3 on both guard edges (c = 0, so e = x:
+    -2^30 and 2^30 trip, 2^30 - 1 and -(2^30 - 1) pass)."""
+    order = np.resize(np.array(FIR_EDGE_ORDERS, np.int32), B)
+    q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+    c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
+                                        torch.from_numpy(order)).numpy()
+    big = np.arange(B) % 11 == 3
+    c[big] = (1 << 23) * rng.choice([-1, 1], (int(big.sum()), 32)) * (
+        np.arange(32)[None, :] < order[big, None])
+    kind = np.arange(B) % 5
+    lim = np.where(kind == 0, 1 << 15, np.where(kind == 1, 1 << 8, 1 << 31))
+    x = (rng.integers(-(1 << 31), 1 << 31, (B, n), dtype=np.int64)
+         * lim[:, None]) >> 31
+    walk = np.cumsum(rng.integers(-(1 << 16), 1 << 16, (B, n)), axis=1)
+    x[kind == 3] = np.clip(walk[kind == 3] * 1024, -(1 << 31), (1 << 31) - 1)
+    x[kind == 4] = np.where(np.arange(n) % 2 == 0, -(1 << 31), (1 << 31) - 1)
+    x = x.astype(np.int32)
+    c[:4], order[:4] = 0, 7
+    x[:4] = np.array([-(1 << 30), (1 << 30) - 1, 1 << 30, -((1 << 30) - 1)],
+                     np.int32)[:, None]
+    nv = rng.integers(0, n + 1, B).astype(np.int32)
+    nv[::4], nv[1::4], nv[2::4] = n, 0, 1
+    nv[:4] = n
+    return x, c, order, nv
+
+
+def fir_rice_taps(torch, filters, args) -> dict:
+    """K5's time against its taps: the CD rows' x under coefficients with
+    exactly t taps on every row, |c| < 2^12 (the sums take the FP64 pipe),
+    and the same with c_t = 2^26 (outside its domain: IMAD.WIDE); every
+    residue passes the guard. Exact, and timed warm."""
+    rng = np.random.default_rng(4)
+    x = args[0].clone()
+    x[:6] = x[6:12]                 # no full-scale guard rows
+    B = x.shape[0]
+    nv = torch.full_like(args[3], FRAME)
+    out = {}
+    for path, last in (("f64", 77), ("int", 1 << 26)):
+        for t in (0, 8, 16, 24, 32):
+            c = np.zeros((B, 32), np.int32)
+            c[:, :t] = rng.integers(-(1 << 12), 1 << 12, (B, t))
+            if t:
+                c[:, t - 1] = last
+            ct = torch.from_numpy(c).to(x.device)
+            order = torch.full_like(args[2], t)
+            got = filters.fir_rice(x, ct, order, nv)
+            want = filters.fir_rice_reference(x, ct, order, nv)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+                  and bool((got[1] == t).all()),
+                  f"K5 disagrees at {t} taps ({path})")
+            out[f"{path}{t}"] = time_kernel(
+                torch, lambda: filters.fir_rice(x, ct, order, nv), 200)
+    log("K5 [1024, 2048] time against taps (exact; ms): " + ", ".join(
+        f"{k} {v:.5f}" for k, v in out.items()))
+    return out
+
+
+def fir_rice_edges(torch, ops_coeffs, filters) -> int:
+    """K5 against its plain version on fir_edge_rows at every N of
+    FIR_EDGE_N (1,027 rows: not a multiple of anything the kernel tiles
+    by), exactly; returns the largest difference (0)."""
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    errs = []
+    for n in FIR_EDGE_N:
+        rows = fir_edge_rows(torch, ops_coeffs, rng, 1027, n)
+        args = [torch.from_numpy(a).to(dev) for a in rows]
+        got = filters.fir_rice(*args)
+        want = filters.fir_rice_reference(*args)
+        torch.cuda.synchronize()
+        errs.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
+        same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        eff = want[1].cpu().numpy()
+        log(f"K5 edge [1027, {n}]: exact={same} max_abs_err={errs[-1]} "
+            f"(fallbacks {int(((eff == 0) & (rows[2] > 0)).sum())})")
+        check(same, f"K5 disagrees with its plain version at [1027, {n}]")
+    return max(errs)
+
+
 def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
     log("== phase 5: K5 (fir_rice) and K6 (ksel) against their plain versions")
     dev = torch.device("cuda")
@@ -587,16 +694,40 @@ def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
     exact = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
     eff = got[1].cpu().numpy()
     guard = (eff[0], eff[4], eff[5]) == (0, 0, 7)
-    ms = time_kernel(torch, lambda: filters.fir_rice(*args), 50)
+    ms = time_kernel(torch, lambda: filters.fir_rice(*args), 200)
+    # cold: 4 copies of x (8.4 MB each), and each call's e kept until its
+    # copy comes round again, so x and e (16.8 MB a call) exceed the L2
+    # between two uses
+    copies = [args[0].clone() for _ in range(4)]
+    ring = [None] * len(copies)
+    calls = iter(range(1 << 30))
+
+    def cold_call(xc):
+        i = next(calls) % len(ring)
+        ring[i] = None
+        ring[i] = filters.fir_rice(xc, *args[1:])
+
+    cold = time_kernel_cold(torch, cold_call, copies, 200)
+    del copies, ring
     plain = time_plain(torch, lambda: filters.fir_rice_reference(*args), 3)
     bms, by = fir_rice_bound(c, nv, want[0].cpu().numpy())
+    rows_ms = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, ROWS_MAIN):
+        args_r = [a[:b].contiguous() for a in args]
+        rows_ms[b] = time_kernel(torch, lambda: filters.fir_rice(*args_r), 200)
     log(f"K5 [{ROWS_MAIN}, {FRAME}]: exact={exact} max_abs_err={err} "
         f"guard rows as expected={guard} (fallbacks: "
-        f"{int(((eff == 0) & (order > 0)).sum())}) kernel {ms:.4f} ms, "
-        f"plain {plain:.2f} ms, bound {bms:.5f} ms ({by})")
+        f"{int(((eff == 0) & (order > 0)).sum())}) kernel {ms:.5f} ms (warm "
+        f"L2), {cold:.5f} ms (cold, 4 copies), plain {plain:.2f} ms, bound "
+        f"{bms:.5f} ms ({by}): share {share(bms, ms):.3f} warm, "
+        f"{share(bms, cold):.3f} cold; rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows_ms.items()))
     check(exact and guard, "K5 disagrees with its plain version")
-    k5 = dict(max_abs_err=err, exact=exact, ms=ms, plain_ms=plain,
-              bound_ms=bms, bound_by=by)
+    taps_ms = fir_rice_taps(torch, filters, args)
+    err_edges = fir_rice_edges(torch, ops_coeffs, filters)
+    k5 = dict(max_abs_err=max(err, err_edges), exact=exact, ms=ms,
+              cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by,
+              cold_share=share(bms, cold), rows_ms=rows_ms, taps_ms=taps_ms)
 
     # K6: K5's residue counts, then random and escape-forcing counts
     B = 2 * ROWS_MAIN
@@ -820,18 +951,50 @@ def phase_analysis(torch, ops_analysis, pipeline, chans):
     differ = int(((got[0] != want[0]) | (got[1] != want[1]).any(dim=1)).sum())
     err4 = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
     dcost = float((got[2] - want[2]).abs().max())
-    ms4 = time_kernel(torch, lambda: ops_analysis.analyze_from_r(r, nv, 32), 50)
+    ms4 = time_kernel(torch, lambda: ops_analysis.analyze_from_r(r, nv, 32), 200)
     plain4 = time_plain(
         torch, lambda: ops_analysis.analyze_from_r_reference(r, nv, 32), 3)
     bms4, by4 = levinson_bound(CAND_MAIN)
+    rows4 = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, CAND_MAIN):
+        r_r, nv_r = r[:b].contiguous(), nv[:b].contiguous()
+        rows4[b] = time_kernel(
+            torch, lambda: ops_analysis.analyze_from_r(r_r, nv_r, 32), 200)
     hist = np.bincount(got[0].cpu().numpy(), minlength=33).tolist()
     log(f"K4 [{CAND_MAIN}]: rows whose order or q differ {differ} of "
         f"{CAND_MAIN}; max_abs_err {err4}; max |dcost| {dcost:.3g} bits; "
-        f"kernel {ms4:.4f} ms, plain {plain4:.2f} ms, bound {bms4:.6f} ms "
-        f"({by4}); orders {hist}")
+        f"kernel {ms4:.5f} ms, plain {plain4:.2f} ms, bound {bms4:.6f} ms "
+        f"({by4}); rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows4.items())
+        + f"; orders {hist}")
     check(differ == 0, "K4 disagrees with its plain version given the same r")
+    check(bool(torch.allclose(got[2], want[2], rtol=1.2e-7, atol=0.0)),
+          "K4's cost is outside rtol 1.2e-7 of its plain version's")
+    # the edges: 1,027 rows (not a multiple of a block's rows) of K3's r on
+    # the candidates, with r = 0 rows, r0 = 0 and r0 < 0 rows under other
+    # lags, n_valid 0 and between, at max_order 1, 8 and 32
+    rng = np.random.default_rng(7)
+    B = 1027
+    r_e = r[:B].clone()
+    r_e[0::13] = 0.0
+    r_e[1::13, 0] = 0.0
+    r_e[2::13, 0] = -r_e[2::13, 0].abs() - 1.0
+    nv_e = torch.from_numpy(rng.integers(0, FRAME + 1, B).astype(np.int32)).to(dev)
+    nv_e[3::13] = 0
+    for max_order in (1, 8, 32):
+        g = ops_analysis.analyze_from_r(r_e, nv_e, max_order)
+        w = ops_analysis.analyze_from_r_reference(r_e, nv_e, max_order)
+        torch.cuda.synchronize()
+        d = int(((g[0] != w[0]) | (g[1] != w[1]).any(dim=1)).sum())
+        close = bool(torch.allclose(g[2], w[2], rtol=1.2e-7, atol=0.0))
+        err4 = max(err4, max_abs_err(g[0], w[0]), max_abs_err(g[1], w[1]))
+        log(f"K4 edge [{B}] max_order {max_order}: rows whose order or q "
+            f"differ {d}; cost within rtol 1.2e-7: {close}")
+        check(d == 0 and close, f"K4 disagrees on the edges at max_order "
+              f"{max_order}")
     k4 = dict(max_abs_err=err4, rows_differ=differ, max_cost_diff=dcost,
-              ms=ms4, plain_ms=plain4, bound_ms=bms4, bound_by=by4)
+              ms=ms4, plain_ms=plain4, bound_ms=bms4, bound_by=by4,
+              rows_ms=rows4)
     return k3, k4
 
 

@@ -70,8 +70,8 @@ def fir_residues_reference(x: torch.Tensor, c: torch.Tensor,
     B, N = x.shape
     x64 = x.to(torch.int64)
     acc = torch.zeros((B, N), dtype=torch.int64, device=x.device)
-    for j in range(1, c.shape[1] + 1):
-        acc[:, j:] += c[:, j - 1 : j].to(torch.int64) * x64[:, : N - j]
+    for j in range(1, c.shape[1] + 1):   # rows under 32 samples: j > N adds
+        acc[:, j:] += c[:, j - 1 : j].to(torch.int64) * x64[:, : max(N - j, 0)]
     e = x64 - ((acc + (1 << (REF_Q - 1))) >> REF_Q)
     valid = torch.arange(N, device=x.device)[None, :] < n_valid[:, None]
     inside = (e > -RESIDUE_LIMIT) & (e < RESIDUE_LIMIT)

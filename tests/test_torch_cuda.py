@@ -159,14 +159,25 @@ def test_autocorr_kernel_matches_plain(dev, B, N):
     assert bool((err <= 1e-5 * want[:, 0].double()).all()), err.max().item()
 
 
-@pytest.mark.parametrize("B", [1, 77, 2048])
-@pytest.mark.parametrize("max_order", [32, 8])
-def test_levinson_kernel_matches_plain_given_r(dev, B, max_order):
+# K4's edges: 1,027 rows (not a multiple of a block's rows) with r = 0,
+# r0 = 0 and r0 < 0 rows under other lags and n_valid 0, at max_order 1, 8
+# and 32
+LEV_CASES = [pytest.param(b, mo, False, id=f"{mo}-{b}")
+             for mo in (32, 8) for b in (1, 77, 2048)] + [
+    pytest.param(1027, mo, True, id=f"{mo}-1027-edges") for mo in (1, 8, 32)]
+
+
+@pytest.mark.parametrize("B,max_order,edges", LEV_CASES)
+def test_levinson_kernel_matches_plain_given_r(dev, B, max_order, edges):
     rng = np.random.default_rng(B + max_order)
     x = torch.from_numpy(_audio(rng, B, 2048)).to(dev)
     r = ops_analysis.autocorr_reference(x)
     r[::13] = 0.0                                   # invalid rows
     nv = torch.from_numpy(rng.integers(0, 2049, B).astype(np.int32)).to(dev)
+    if edges:
+        r[1::13, 0] = 0.0
+        r[2::13, 0] = -r[2::13, 0].abs() - 1.0
+        nv[3::13] = 0
     before = k_enc.launches["levinson"]
     order, q, cost = ops_analysis.analyze_from_r(r, nv, max_order)
     assert k_enc.launches["levinson"] == before + 1
@@ -176,22 +187,63 @@ def test_levinson_kernel_matches_plain_given_r(dev, B, max_order):
     assert torch.allclose(cost, wc, rtol=1.2e-7, atol=0.0)
 
 
-@pytest.mark.parametrize("B,N", GRID, ids=_ids(GRID))
-def test_fir_rice_kernel_matches_plain(dev, B, N):
-    rng = np.random.default_rng(B * 3 + N)
-    bits = 32 if B == 77 else 16
-    x = _audio(rng, B, N, bits=bits)
-    order = rng.permutation(np.arange(B) % (MAX_ORDER + 1)).astype(np.int32)
+def _fir_edge_rows(rng, B: int, N: int):
+    """K5's edge rows: orders on every tap tier's edges (0, 8, 16, 24, 32
+    and one past each), every 11th row +-2^23 on each tap up to its order,
+    16-bit, 8-bit and full-scale int32 noise, smooth int32 walks and rows
+    alternating INT32_MIN and INT32_MAX (the sums of the full-scale rows
+    leave the FP64 path's domain), n_valid N, 0, 1 and between with nonzero
+    samples past it, and rows 0-3 on both guard edges (c = 0: -2^30 and
+    2^30 trip, 2^30 - 1 and -(2^30 - 1) pass)."""
+    order = np.resize(np.array([0, 1, 8, 9, 16, 17, 24, 25, 32], np.int32), B)
     q = rng.integers(-64, 64, (B, MAX_ORDER)).astype(np.int32)
     c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
-                                        torch.from_numpy(order))
-    if B > 4:   # rows whose residue is exactly on a guard edge (c = 0)
-        c[:4] = 0
-        x[:4] = np.array([-(1 << 30), (1 << 30) - 1, 1 << 30, -(1 << 30) + 1],
-                         np.int32)[:, None]
+                                        torch.from_numpy(order)).numpy()
+    big = np.arange(B) % 11 == 3
+    c[big] = (1 << 23) * rng.choice([-1, 1], (int(big.sum()), MAX_ORDER)) * (
+        np.arange(MAX_ORDER)[None, :] < order[big, None])
+    kind = np.arange(B) % 5
+    lim = np.where(kind == 0, 1 << 15, np.where(kind == 1, 1 << 8, 1 << 31))
+    x = (rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int64)
+         * lim[:, None]) >> 31
+    walk = np.cumsum(rng.integers(-(1 << 16), 1 << 16, (B, N)), axis=1)
+    x[kind == 3] = np.clip(walk[kind == 3] * 1024, -(1 << 31), (1 << 31) - 1)
+    x[kind == 4] = np.where(np.arange(N) % 2 == 0, -(1 << 31), (1 << 31) - 1)
+    x = x.astype(np.int32)
+    c[:4], order[:4] = 0, 7
+    x[:4] = np.array([-(1 << 30), (1 << 30) - 1, 1 << 30, -((1 << 30) - 1)],
+                     np.int32)[:, None]
     nv = rng.integers(0, N + 1, B).astype(np.int32)
-    nv[: B // 2] = N
-    args = [torch.from_numpy(a).to(dev) for a in (x, c.numpy(), order, nv)]
+    nv[::4], nv[1::4], nv[2::4] = N, 0, 1
+    nv[:4] = N
+    return x, c, order, nv
+
+
+# K5's edges: 1,027 rows at lengths on its tilings' edges (a warp's 512
+# samples, a lane's 16, N % 4 != 0 takes the scalar path)
+FIR_EDGES = [(1027, n) for n in (1, 31, 32, 33, 63, 64, 65, 1000, 2047)]
+
+
+@pytest.mark.parametrize("B,N", GRID + FIR_EDGES, ids=_ids(GRID + FIR_EDGES))
+def test_fir_rice_kernel_matches_plain(dev, B, N):
+    rng = np.random.default_rng(B * 3 + N)
+    if (B, N) in FIR_EDGES:
+        x, c, order, nv = _fir_edge_rows(rng, B, N)
+        args = [torch.from_numpy(a).to(dev) for a in (x, c, order, nv)]
+    else:
+        bits = 32 if B == 77 else 16
+        x = _audio(rng, B, N, bits=bits)
+        order = rng.permutation(np.arange(B) % (MAX_ORDER + 1)).astype(np.int32)
+        q = rng.integers(-64, 64, (B, MAX_ORDER)).astype(np.int32)
+        c = ops_coeffs.lpc_from_q_reference(torch.from_numpy(q),
+                                            torch.from_numpy(order))
+        if B > 4:   # rows whose residue is exactly on a guard edge (c = 0)
+            c[:4] = 0
+            x[:4] = np.array([-(1 << 30), (1 << 30) - 1, 1 << 30,
+                              -(1 << 30) + 1], np.int32)[:, None]
+        nv = rng.integers(0, N + 1, B).astype(np.int32)
+        nv[: B // 2] = N
+        args = [torch.from_numpy(a).to(dev) for a in (x, c.numpy(), order, nv)]
     before = k_enc.launches["fir_rice"]
     got = ops_filters.fir_rice(*args)
     assert k_enc.launches["fir_rice"] == before + 1

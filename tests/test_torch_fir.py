@@ -106,6 +106,76 @@ def test_fir_rice_plain_matches_generic_fir_int32(rng, tail):
     np.testing.assert_array_equal(eff[36:40], np.where(trips, 0, 7))
 
 
+# The lengths K5's edges use that the Pallas wrapper takes: N = 1 and every
+# N >= 32 (its shifted-window concatenation needs N >= j for each tap j, or
+# N = 1, where every shifted slice is empty); 2 <= N <= 31 is pinned below
+# against the generic jnp FIR instead.
+PALLAS_EDGE_N = [1, 32, 33, 63, 64, 65, 1000, 2047]
+
+
+@pytest.mark.parametrize("N", PALLAS_EDGE_N)
+def test_fir_rice_plain_matches_pallas_interpret_at_edges(N):
+    """K5's edges within the Pallas limb domain (|x| < 2^26): orders on
+    every tap tier's edge, +-2^23 coefficients, 16-bit, 8-bit and 25-bit
+    noise, smooth walks and rows alternating +-(2^26 - 1), n_valid N, 0, 1
+    and between (rows zero-padded past it, as the encoder pads them), and
+    rows 0-3 on both guard edges (c = 0, so e = x)."""
+    rng = np.random.default_rng(N)
+    B = 64
+    order = np.resize(np.array([0, 1, 8, 9, 16, 17, 24, 25, 32], np.int32), B)
+    c = _coeffs(rng, order)
+    big = np.arange(B) % 11 == 3
+    c[big] = (1 << 23) * rng.choice([-1, 1], (int(big.sum()), MAX_ORDER)) * (
+        np.arange(MAX_ORDER)[None, :] < order[big, None])
+    kind = np.arange(B) % 5
+    lim = np.where(kind == 0, 1 << 15, np.where(kind == 1, 1 << 8, 1 << 25))
+    x = rng.integers(-(1 << 25), 1 << 25, (B, N)) * lim[:, None] >> 25
+    walk = np.cumsum(rng.integers(-(1 << 12), 1 << 12, (B, N)), axis=1)
+    x[kind == 3] = np.clip(walk[kind == 3] * 64, -(1 << 26) + 1, (1 << 26) - 1)
+    x[kind == 4] = np.where(np.arange(N) % 2 == 0, -(1 << 26) + 1,
+                            (1 << 26) - 1)
+    x = x.astype(np.int32)
+    c[:4], order[:4] = 0, 7
+    x[:4] = np.array([-(1 << 30), (1 << 30) - 1, 1 << 30, -((1 << 30) - 1)],
+                     np.int32)[:, None]
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    nv[::4], nv[1::4], nv[2::4] = N, 0, 1
+    nv[:4] = N
+    x[np.arange(N)[None, :] >= nv[:, None]] = 0     # encoder rows are padded
+    e, eff, counts = _port(x, c, order, nv)
+    ew, effw, cw = fir_rice_pallas(jnp.asarray(x), jnp.asarray(c),
+                                   jnp.asarray(order), jnp.asarray(nv),
+                                   interpret=True)
+    np.testing.assert_array_equal(e, np.asarray(ew))
+    np.testing.assert_array_equal(eff, np.asarray(effw))
+    np.testing.assert_array_equal(counts, np.asarray(cw))
+    np.testing.assert_array_equal(eff[:4], [0, 7, 0, 7])
+
+
+@pytest.mark.parametrize("N", [2, 17, 31])
+def test_fir_rice_plain_short_rows_match_padded_generic_fir(rng, N):
+    """Rows of 2..31 samples (shorter than the 32 taps): the plain version
+    equals the generic jnp FIR on the same rows zero-padded to 64 samples,
+    cut back to N (a residue depends on earlier samples only)."""
+    B = 40
+    order = (np.arange(B) % (MAX_ORDER + 1)).astype(np.int32)
+    x = rng.integers(-(1 << 31), 1 << 31, (B, N), dtype=np.int64)
+    x[::2] >>= 16
+    x = x.astype(np.int32)
+    c = _coeffs(rng, order)
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    nv[::3] = N
+    e, eff, counts = _port(x, c, order, nv)
+    xp = np.zeros((B, 64), np.int32)
+    xp[:, :N] = x
+    ew, effw = _jax_fir(jnp.asarray(xp), jnp.asarray(c), jnp.asarray(order),
+                        jnp.asarray(nv))
+    ew = np.asarray(ew)[:, :N]
+    np.testing.assert_array_equal(e, ew)
+    np.testing.assert_array_equal(eff, np.asarray(effw))
+    np.testing.assert_array_equal(counts, np.asarray(_jax_counts(ew)))
+
+
 def test_fir_residues_are_inverted_by_iir(rng, signal_factory):
     """On rows that pass the guard, IIR synthesis of the residues gives x."""
     B, N = 12, 300
