@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`sela_tpu_torch`) on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase, as below
+    python3 chip_smoke.py --encode-profile   # phases 1-2, then the profiled
+                                             # encodes alone (cd_180s v1, v2,
+                                             # perc_20s v2), no result line
 
 Phases, in order; any failure exits non-zero and prints no result line:
 
@@ -36,9 +39,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
              rows at N = 1, 31, 32, 33, 63, 64, 65, 1,000 and 2,047: orders
              on every tap tier's edge, +-2^23 coefficients, INT32_MIN/
              INT32_MAX and full-scale rows, both guard edges, n_valid 0, 1
-             and N with nonzero samples past it); and the Rice k selection
-             (csrc/ksel.cu) at 2,048 rows (K5's counts, random and
-             escape-forcing counts; k_max 30, 7, 0); all exactly;
+             and N with nonzero samples past it); the Rice k selection's
+             generic entry (csrc/ksel.cu) at 2,048 rows (K5's counts,
+             random and escape-forcing counts; k_max 30, 7, 0); and K6's
+             render entry (`rice_plan`: all of the render's Rice planning)
+             on K5's counts and eff_order and the rows' q at 1,024 rows,
+             timed warm and at 1, 132 and 1,024 rows; all exactly;
 5b. K8, K6 — the per-quarter bit counts (csrc/quarter_counts.cu) at [1,024,
              2,048], exactly: (a) phase 5's K5 residues with n_valid 2,048,
              2,000, 7, 5, 4, 3, 1 and 0 on some rows, (b) uniform int32
@@ -47,8 +53,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
              whose widest zigzag code has 1, 31 and 32 bits; timed and
              bounded on (a)'s residues at phase 5's n_valid, warm (L2) and
              cold (input rotated over 7 copies), and at 1, 132 and 1,024
-             rows; then K6 at its v2 shape, 6,144 rows (K5's counts, the
-             coefficient counts and K8's quarters of (a)), exactly;
+             rows; then K6's generic entry at its old v2 shape, 6,144 rows
+             (K5's counts, the coefficient counts and K8's quarters of
+             (a)), and its render entry under v2 (K8's quarters at phase
+             5's n_valid, timed as in phase 5) and on the edges (1,027
+             rows, v1 and v2, k_max 30, 7 and 0: n_valid 0, 3, 4, 5, 2,047
+             and 2,048, eff_order 0, 1, 31 and 32, q of -64, 63, INT32_MIN
+             and INT32_MAX, escape-forcing rows), exactly;
 6. K3, K4  — autocorrelation (csrc/autocorr.cu) and Levinson / order
              selection (csrc/levinson.cu) at the main path's [2,048, 2,048]
              candidate rows of the CD track: K3 within 1e-5 of r[0] a row
@@ -73,7 +84,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              on the card to the input (the 32-bit one through the oracle as
              well), K1, K3, K4, K5 and K6 must have run once a chunk and K8
              never, and the CD stream may be at most 1% larger than the
-             oracle's; one profiled encode gives the device busy time;
+             oracle's; one profiled encode gives the device busy time,
+             the device kernels launched and PyTorch's reduction and int64
+             elementwise rows among them;
 9. encode v2 — `encode_wav` with partitioned residues (residue_partition=4)
              on the card: the CD track, whose stream may be no larger than
              the v1 stream of phase 8, and a 20 s 16-bit/44.1 kHz percussive
@@ -81,6 +94,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
              stream and at most 1% larger than the oracle's v2 stream, and
              must decode to the input through the oracle too; K8 and K6 run
              once a chunk; one profiled encode of each clip;
+9b. plain planning — the `cd_180s` v1 and `perc_20s` v2 encodes again with
+             `pipeline.rice_plan` set to its plain version on the card (a
+             check, not a fallback): the streams must be byte-identical;
 10. each kernel's share of its bound, the `kernels` JSON line, then the
    card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
@@ -124,6 +140,7 @@ BITCOUNT_OPS = 3                    # shift, mask and add of one word of 8
 QUARTER_SAMPLE_OPS = 8              # zigzag (3), quarter index (3 compares,
                                     # 2 adds) per valid sample
 KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
+RICE_PLAN_ROW_OPS = 16              # block words, the v2 decision, packing
 
 FRAME = 2048
 ROWS_MAIN = 1024    # rows of one default 512-frame stereo chunk
@@ -343,6 +360,23 @@ def quarter_counts_bound(e: np.ndarray, nv: np.ndarray) -> tuple[float, str]:
 def ksel_bound(B: int) -> tuple[float, str]:
     """K6: reads counts and n, writes k and bits; 31 recurrence steps."""
     return bound_ms(B * (32 * 4 + 3 * 4), B * 31 * KSEL_STEP_OPS)
+
+
+def rice_plan_bound(q_eff: np.ndarray, eff: np.ndarray,
+                    partition: bool) -> tuple[float, str]:
+    """K6's render entry on these rows: reads counts_res, q, eff_order and
+    n_valid (and [4, 32] quarter counts a row under v2), writes q_eff and
+    six [B] outputs. Per row: the zigzag of 32 coefficients and their bit
+    counts up to the row's widest code (2 operations a code a bit), 31
+    recurrence steps for each of its 2 (v2: 6) selections, the epilogue."""
+    B = len(eff)
+    sel = 6 if partition else 2
+    widths = zigzag_widths(q_eff, eff).astype(np.int64)
+    ops = (32 * (3 + 2 * widths) + sel * 31 * KSEL_STEP_OPS
+           + RICE_PLAN_ROW_OPS).sum()
+    nbytes = B * (2 * 32 * 4 + 2 * 4 + (4 * 32 * 4 if partition else 0)
+                  + 32 * 4 + 6 * 4)
+    return bound_ms(nbytes, ops)
 
 
 def autocorr_bound(B: int, N: int) -> tuple[float, str]:
@@ -669,6 +703,88 @@ def fir_rice_edges(torch, ops_coeffs, filters) -> int:
     return max(errs)
 
 
+def rice_plan_main(torch, ops_rice, counts, q, eff, nv, qc, label) -> dict:
+    """K6's render entry at the main path's shape against its plain version
+    (k_max 30, the default profile's), exactly; timed warm, at 1, 132 and
+    all rows, against rice_plan_bound."""
+    got = ops_rice.rice_plan(counts, q, eff, nv, 30, qc)
+    want = ops_rice.rice_plan_reference(counts, q, eff, nv, 30, qc)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got[k], want[k]) for k in want)
+    exact = all(bool(torch.equal(got[k], want[k])) for k in want)
+    ms = time_kernel(torch, lambda: ops_rice.rice_plan(counts, q, eff, nv, 30,
+                                                       qc), 200)
+    plain = time_plain(torch, lambda: ops_rice.rice_plan_reference(
+        counts, q, eff, nv, 30, qc), 5)
+    B = q.shape[0]
+    rows_ms = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, B):
+        a_r = [t[:b].contiguous() for t in (counts, q, eff, nv)]
+        qc_r = None if qc is None else qc[:b].contiguous()
+        rows_ms[b] = time_kernel(
+            torch, lambda: ops_rice.rice_plan(*a_r, 30, qc_r), 200)
+    bms, by = rice_plan_bound(want["q_eff"].cpu().numpy(), eff.cpu().numpy(),
+                              qc is not None)
+    k_res = want["k_res"].cpu().numpy()
+    log(f"K6 rice_plan {label} [{B}]: exact={exact} max_abs_err={err} "
+        f"(escapes {int((k_res == 31).sum())}, partitioned "
+        f"{int((k_res == 32).sum())}) kernel {ms:.5f} ms, plain {plain:.3f} "
+        f"ms, bound {bms:.6f} ms ({by}): share {share(bms, ms):.3f}; rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows_ms.items()))
+    check(exact, f"K6's render entry disagrees with its plain version ({label})")
+    return dict(rows=B, max_abs_err=err, exact=exact, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, rows_ms=rows_ms)
+
+
+def rice_plan_edges(torch, ops_rice) -> int:
+    """K6's render entry against its plain version on 1,027 rows (not a
+    multiple of a block's rows), v1 and v2 at k_max 30, 7 and 0, exactly:
+    residues whose scale changes from quarter to quarter, n_valid 0, 3, 4,
+    5, 2,047 and 2,048 on every other row, eff_order 0, 1, 31 and 32 on
+    four rows of five, q rows of -64, 63, INT32_MIN, INT32_MAX and both
+    extremes, rows of INT32_MIN residues (counts = n in every column: the
+    escape). Returns the largest difference (0)."""
+    rng = np.random.default_rng(8)
+    dev = torch.device("cuda")
+    B, N = 1027, FRAME
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    nv[::2] = np.resize(np.array([0, 3, 4, 5, N - 1, N], np.int32),
+                        len(nv[::2]))
+    eff = rng.integers(0, 33, B).astype(np.int32)
+    for i, v in enumerate((0, 1, 31, 32)):
+        eff[i::5] = v
+    q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+    q[0::9], q[1::9], q[2::9], q[3::9] = -64, 63, -(1 << 31), (1 << 31) - 1
+    q[4::9] = np.where(np.arange(32) % 2, -(1 << 31), (1 << 31) - 1)
+    scale = 2.0 ** rng.uniform(0, 16, (B, 4))
+    e = np.round(rng.laplace(0, 1, (B, N)) * np.repeat(scale, N // 4, axis=1))
+    e = np.clip(e, -(1 << 31), (1 << 31) - 1).astype(np.int32)
+    e[5::11] = -(1 << 31)
+    et, nvt = torch.from_numpy(e).to(dev), torch.from_numpy(nv).to(dev)
+    valid = torch.arange(N, device=dev)[None, :] < nvt[:, None]
+    counts = ops_rice.bit_counts(ops_rice.zigzag(torch.where(valid, et, 0)))
+    qc4 = ops_rice.quarter_counts_reference(et, nvt)
+    args = (counts, torch.from_numpy(q).to(dev), torch.from_numpy(eff).to(dev),
+            nvt)
+    errs = []
+    for qc in (None, qc4):
+        for k_max in (30, 7, 0):
+            got = ops_rice.rice_plan(*args, k_max, qc)
+            want = ops_rice.rice_plan_reference(*args, k_max, qc)
+            torch.cuda.synchronize()
+            errs.append(max(max_abs_err(got[k], want[k]) for k in want))
+            same = all(bool(torch.equal(got[k], want[k])) for k in want)
+            k_res = want["k_res"].cpu().numpy()
+            label = "v1" if qc is None else "v2"
+            log(f"K6 rice_plan edges {label} [{B}] k_max={k_max}: exact={same}"
+                f" (escapes {int((k_res == 31).sum())}, empty "
+                f"{int((nv == 0).sum())}, partitioned "
+                f"{int((k_res == 32).sum())})")
+            check(same, f"K6's render entry disagrees on the edges ({label}, "
+                  f"k_max {k_max})")
+    return max(errs)
+
+
 def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
     log("== phase 5: K5 (fir_rice) and K6 (ksel) against their plain versions")
     dev = torch.device("cuda")
@@ -756,11 +872,15 @@ def phase_fir_ksel(torch, ops_coeffs, filters, ops_rice, rows, rng):
     log(f"K6 [{B}]: max_abs_err={max(errs)} kernel {ms6:.5f} ms, plain "
         f"{plain6:.3f} ms, bound {bms6:.6f} ms ({by6})")
     check(exact6, "K6 disagrees with its plain version")
-    k6 = dict(max_abs_err=max(errs), exact=exact6, ms=ms6, plain_ms=plain6,
-              bound_ms=bms6, bound_by=by6)
+    k6 = dict(rows=B, max_abs_err=max(errs), exact=exact6, ms=ms6,
+              plain_ms=plain6, bound_ms=bms6, bound_by=by6)
     render = dict(e=got[0], eff_order=got[1], counts=got[2], nv=nv,
                   q=torch.from_numpy(q).to(dev))
-    return k5, k6, render
+    # K6's render entry as the v1 render calls it on this chunk's rows: K5's
+    # counts and eff_order, the rows' q
+    plan = rice_plan_main(torch, ops_rice, got[2], render["q"], got[1],
+                          args[3], None, "v1")
+    return k5, k6, plan, render
 
 
 def phase_quarter_counts(torch, ops_rice, render, rng):
@@ -862,7 +982,15 @@ def phase_quarter_counts(torch, ops_rice, render, rng):
     check(exact6, "K6 disagrees with its plain version at its v2 shape")
     k6v2 = dict(rows=B, max_abs_err=err6, exact=exact6, ms=ms6,
                 plain_ms=plain6, bound_ms=bms6, bound_by=by6)
-    return k8, k6v2
+
+    # K6's render entry as the v2 render calls it: K8's quarters at the
+    # main path's n_valid; then the edges, v1 and v2
+    plan_v2 = rice_plan_main(torch, ops_rice, render["counts"], render["q"],
+                             render["eff_order"], nv_main,
+                             ops_rice.quarter_counts(e_a, nv_main), "v2")
+    plan_v2["max_abs_err"] = max(plan_v2["max_abs_err"],
+                                 rice_plan_edges(torch, ops_rice))
+    return k8, k6v2, plan_v2
 
 
 def phase_analysis(torch, ops_analysis, pipeline, chans):
@@ -1007,11 +1135,12 @@ def device_profile(torch, fn) -> tuple[float, dict]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, count = {}, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
             by_name[ev.key] = ev.self_device_time_total / 1e3
-    return sum(by_name.values()), by_name
+            count[ev.key] = ev.count
+    return sum(by_name.values()), by_name, count
 
 
 def phase_e2e(torch, decoder, ref_codec, WavData, Metrics, bitio, container,
@@ -1056,20 +1185,43 @@ def phase_e2e(torch, decoder, ref_codec, WavData, Metrics, bitio, container,
                 oracle_bytes=len(buf))
 
 
+def launch_rows(by_name: dict, count: dict) -> str:
+    """Device kernels launched in a profiled run (copies and fills apart),
+    and PyTorch's glue among them: its reductions and its int64 elementwise
+    kernels (launches and device ms)."""
+    import re
+
+    def rows(pick):
+        keys = [k for k in by_name if pick(k)]
+        return sum(count[k] for k in keys), sum(by_name[k] for k in keys)
+
+    kern = rows(lambda k: not k.startswith(("Memcpy", "Memset")))
+    torch_k = rows(lambda k: "at::native" in k)
+    reduce_k = rows(lambda k: "reduce_kernel" in k)
+    long_k = rows(lambda k: "elementwise_kernel" in k
+                  and re.search(r"\blong\b", k) is not None)
+    return (f"device kernels launched {kern[0]} ({kern[1]:.3f} ms): "
+            f"PyTorch's {torch_k[0]} ({torch_k[1]:.3f} ms), of them "
+            f"reduce_kernel {reduce_k[0]} ({reduce_k[1]:.3f} ms) and int64 "
+            f"elementwise {long_k[0]} ({long_k[1]:.3f} ms)")
+
+
 def log_profile(torch, fn, wall: float) -> None:
     """A profiled run of fn: device busy ms, idle share of `wall`, top
     kernels and copies."""
-    busy, by_name = device_profile(torch, fn)
+    busy, by_name, count = device_profile(torch, fn)
     if busy > 0:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         log(f"  profiled run: device busy {busy:.3f} ms = idle share "
             f"{1 - busy / (wall * 1e3):.4f} of the timed run's wall; top: "
             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+        log("  " + launch_rows(by_name, count))
         # the port's kernels (csrc/*.cu, each in an anonymous namespace),
         # whether or not they made the top ten
-        ours = sorted((k.split("::")[1].split("(")[0], v)
+        # (a template's name starts with its return type)
+        ours = sorted((k.split("(anonymous namespace)::")[1].split("(")[0], v)
                       for k, v in by_name.items()
-                      if k.startswith("(anonymous namespace)::"))
+                      if "(anonymous namespace)::" in k and "at::" not in k)
         log("  the port's kernels: "
             + "; ".join(f"{k} {v:.4f} ms" for k, v in ours))
     else:
@@ -1153,11 +1305,14 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
     return dict(name=name, launches=launches, wall_s=wall,
                 pcm_mb_per_s=pcm_mb / wall, stages=stages,
                 ratio=len(buf) / (pcm_mb * 1e6), bytes=len(buf),
-                partitioned_share=part_share)
+                partitioned_share=part_share, stream=buf)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
+
+    if argv not in ([], ["--encode-profile"]):
+        fail(f"usage: python3 chip_smoke.py [--encode-profile], got {argv}")
 
     kind, smi = phase_device(torch)
     sys.path.insert(0, HERE)
@@ -1184,6 +1339,18 @@ def main() -> int:
     from sela_tpu_torch.utils.metrics import Metrics
 
     phase_build(k_lpc, k_iir, k_enc, bitio, build_log, BUILD_DIR, nvcc)
+    enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
+                container, k_lpc, k_iir, k_enc)
+    v2 = BitstreamProfile(residue_partition=4)
+    if argv:   # --encode-profile: the profiled encodes alone
+        log("== the profiled encodes alone: cd_180s v1 and v2, perc_20s v2")
+        cd = make_track(180.0, 44100, 16, seed=0)
+        perc = make_percussive(20.0, seed=3)
+        for name, chans, prof in (("cd_180s", cd, None), ("cd_180s", cd, v2),
+                                  ("perc_20s", perc, v2)):
+            phase_encode(*enc_args, name, chans, 44100, 16, profile=prof,
+                         warm=True)
+        return 0
     lpc = phase_lpc(torch, ops_coeffs)
 
     t0 = time.perf_counter()
@@ -1192,9 +1359,9 @@ def main() -> int:
     rng = np.random.default_rng(2)
     rows = oracle_rows(ref_lpc, cd, ROWS_MAIN, rng)
     iir = phase_iir(torch, ops_coeffs, filters, k_iir, rows, rng)
-    k5, k6, render = phase_fir_ksel(torch, ops_coeffs, filters, ops_rice,
-                                    rows, rng)
-    k8, k6v2 = phase_quarter_counts(torch, ops_rice, render, rng)
+    k5, k6, plan, render = phase_fir_ksel(torch, ops_coeffs, filters,
+                                          ops_rice, rows, rng)
+    k8, k6v2, plan_v2 = phase_quarter_counts(torch, ops_rice, render, rng)
     k3, k4 = phase_analysis(torch, ops_analysis, pipeline, cd)
 
     clips = [("cd_180s", cd, 44100, 16),
@@ -1211,8 +1378,6 @@ def main() -> int:
                for name, chans, rate, bits in clips}
 
     log("== phase 8: encode end to end")
-    enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
-                container, k_lpc, k_iir, k_enc)
     encoded = {name: phase_encode(
         *enc_args, name, chans, rate, bits, decoded[name]["oracle_bytes"],
         max_vs_oracle=1.01 if name == "cd_180s" else None,
@@ -1221,7 +1386,6 @@ def main() -> int:
     dec_main, enc_main = decoded["cd_180s"], encoded["cd_180s"]
 
     log("== phase 9: encode end to end, partitioned residues (v2)")
-    v2 = BitstreamProfile(residue_partition=4)
     enc_v2 = phase_encode(*enc_args, "cd_180s", cd, 44100, 16, profile=v2,
                           warm=True)
     check(enc_v2["bytes"] <= enc_main["bytes"],
@@ -1239,6 +1403,25 @@ def main() -> int:
         f"v2/oracle v2 {perc_v2['bytes'] / oracle_v2:.5f}")
     check(perc_v2["bytes"] < 0.99 * perc_v1["bytes"],
           "perc_20s: the v2 stream is not 1% smaller than the v1 stream")
+
+    log("== phase 9b: the same encodes with the render's planning on its "
+        "plain version (a check)")
+    kernel_plan = pipeline.rice_plan
+    pipeline.rice_plan = ops_rice.rice_plan_reference
+    try:
+        for label, chans, prof, ref in (("cd_180s (v1)", cd, None, enc_main),
+                                        ("perc_20s (v2)", perc, v2, perc_v2)):
+            k_enc.launches["ksel"] = 0
+            buf = encoder.encode_wav(WavData(44100, 16, chans), device="cuda",
+                                     profile=prof)
+            same = buf == ref["stream"]
+            log(f"{label}: stream with the plain planning byte-identical to "
+                f"the kernel's: {same} ({len(buf)} bytes; K6 launches "
+                f"{k_enc.launches['ksel']})")
+            check(same and k_enc.launches["ksel"] == 0,
+                  f"{label}: the plain planning gives another stream")
+    finally:
+        pipeline.rice_plan = kernel_plan
 
     def entry(name, source, replaces, res, launches, library_ms=None, **extra):
         return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
@@ -1263,11 +1446,12 @@ def main() -> int:
               enc_main["launches"]["levinson"]),
         entry("fir_rice", "fir_rice.cu", "sela_tpu/kernels/encode.py:45", k5,
               enc_main["launches"]["fir_rice"]),
-        entry("ksel", "ksel.cu", "sela_tpu/kernels/encode.py:474", k6,
-              enc_main["launches"]["ksel"],
+        entry("ksel", "ksel.cu", "sela_tpu/kernels/encode.py:474",
+              {k: v for k, v in plan.items() if k != "rows"},
+              enc_main["launches"]["ksel"], c_entry="sela_rice_plan (the render)",
               launches_by_path={"v1": enc_main["launches"]["ksel"],
                                 "v2": enc_v2["launches"]["ksel"]},
-              v2_shape=k6v2),
+              v2=plan_v2, generic=k6, generic_v2_shape=k6v2),
         entry("quarter_counts", "quarter_counts.cu",
               "sela_tpu/kernels/encode.py:401", k8,
               enc_v2["launches"]["quarter_counts"]),
@@ -1284,4 +1468,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

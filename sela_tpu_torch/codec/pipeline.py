@@ -6,7 +6,7 @@ boundary of each step:
   residues of the chunk, the mid/side decision applied (the JAX
   encode_step's fused branch: K3 + K4 analysis on every candidate row, then
   the render, K1 -> K5 (-> K8 under partitioned residues) -> one K6
-  call, on the rows it needs);
+  launch for all of the Rice planning, on the rows it needs);
 - `decode_step`: residues [F, C, S], qcoeffs [F, C, 32], order and sftype
   [F, C] -> PCM (K1, then K2/K7).
 Kernel routing depends on the device only: on CUDA tensors the kernels
@@ -20,14 +20,13 @@ from __future__ import annotations
 
 import torch
 
-from ..format import (MAX_ORDER, RESIDUE_PARTS, RICE_K_MAX,
-                      RICE_PARTITION_MARKER, SF_DIRECT, SF_MID, SF_SIDE)
+from ..format import (MAX_ORDER, RESIDUE_PARTS, RICE_K_MAX, SF_DIRECT,
+                      SF_MID, SF_SIDE)
 from ..kernels.iir import iir_synthesize
 from ..ops.analysis import analyze
 from ..ops.coeffs import lpc_from_q
 from ..ops.filters import fir_rice
-from ..ops.rice import (bit_counts, block_words, ksel, quarter_bounds,
-                        quarter_counts, zigzag)
+from ..ops.rice import quarter_counts, rice_plan
 
 
 def _mid_side(left: torch.Tensor, right: torch.Tensor):
@@ -53,46 +52,19 @@ def _render_rows(xb: torch.Tensor, q: torch.Tensor, order: torch.Tensor,
                  partition: int = 1) -> dict:
     """Normative render of [B, S] rows with chosen (order, q): K1 integer
     Levinson -> K5 FIR residues, guard and residue bit counts -> one K6
-    call for the residue and coefficient blocks together (the JAX
-    _render_rows). partition=4 (FORMAT.md §Partitioned residues) adds K8's
-    per-quarter counts of the residues, whose 4B quarter rows join that K6
-    call, and emits a row partitioned (k_res = RICE_PARTITION_MARKER, its
-    sub-ks byte-packed in kr4) where that is strictly smaller, the oracle's
-    rule. Returns per-row arrays, with block_bits = padded-word bits of both
-    blocks plus a partitioned row's 4 sub-k bytes (the exact mid/side
-    rule's metric)."""
+    launch (`rice_plan`) for all of the Rice planning: q_eff, the
+    coefficient block's bit counts, the k selection of the residue and
+    coefficient blocks and the block words (the JAX _render_rows).
+    partition=4 (FORMAT.md §Partitioned residues) adds K8's per-quarter
+    counts of the residues, whose quarters K6 plans too, emitting a row
+    partitioned where that is strictly smaller, the oracle's rule. Returns
+    per-row arrays (ops/rice.py::rice_plan_reference), with block_bits the
+    exact mid/side rule's metric."""
     c = lpc_from_q(q, order)
     e, eff_order, counts_res = fir_rice(xb, c, order, nv)
-    cols = torch.arange(MAX_ORDER, device=q.device)[None, :]
-    q_eff = torch.where(cols < eff_order[:, None], q, 0)
-    # q_eff is zero from eff_order on, so its codes need no further mask
-    counts = [counts_res, bit_counts(zigzag(q_eff))]
-    ns = [nv, eff_order]
-    B = xb.shape[0]
-    if partition == RESIDUE_PARTS:
-        counts.append(quarter_counts(e, nv).view(RESIDUE_PARTS * B, 32))
-        ns.append(quarter_bounds(nv).diff(dim=1).reshape(RESIDUE_PARTS * B))
-    k_all, bits_all = ksel(torch.cat(counts), torch.cat(ns), rice_k_max)
-    k_res, nw_res = k_all[:B], block_words(bits_all[:B])
-    nw_coeff = block_words(bits_all[B : 2 * B])
-    kr4 = header_bytes = torch.zeros_like(eff_order)
-    if partition == RESIDUE_PARTS:
-        kq = k_all[2 * B :].view(B, RESIDUE_PARTS)
-        bits_q = bits_all[2 * B :].view(B, RESIDUE_PARTS)
-        nw_part = block_words(bits_q.sum(dim=1, dtype=torch.int32))
-        # the partitioned block pays one sub-k byte a quarter in its header
-        use_part = (nv >= RESIDUE_PARTS) & (
-            32 * nw_part + 8 * RESIDUE_PARTS < 32 * nw_res)
-        packed = kq[:, 0]
-        for i in range(1, RESIDUE_PARTS):
-            packed = packed | (kq[:, i] << (8 * i))   # sub-ks <= 31: no sign
-        kr4 = torch.where(use_part, packed, 0)
-        k_res = torch.where(use_part, RICE_PARTITION_MARKER, k_res)
-        nw_res = torch.where(use_part, nw_part, nw_res)
-        header_bytes = use_part.to(torch.int32) * RESIDUE_PARTS
-    return dict(e=e, eff_order=eff_order, q_eff=q_eff, k_res=k_res, kr4=kr4,
-                k_coeff=k_all[B : 2 * B], nw_res=nw_res, nw_coeff=nw_coeff,
-                block_bits=32 * (nw_res + nw_coeff) + 8 * header_bytes)
+    qc = quarter_counts(e, nv) if partition == RESIDUE_PARTS else None
+    return dict(e=e, eff_order=eff_order,
+                **rice_plan(counts_res, q, eff_order, nv, rice_k_max, qc))
 
 
 def encode_step(x: torch.Tensor, n_valid: torch.Tensor, allow_ms: bool = True,

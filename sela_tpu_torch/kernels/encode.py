@@ -9,14 +9,16 @@ sela_tpu/kernels/encode.py kernel:
                                                (analyze_pallas)
     fir_rice        csrc/fir_rice.cu        K5 _fir_rice_kernel
                                                (fir_rice_pallas)
-    ksel            csrc/ksel.cu            K6 _make_ksel_kernel (ksel_pallas)
+    ksel            csrc/ksel.cu            K6 _make_ksel_kernel (ksel_pallas);
+                                               its second entry, rice_plan,
+                                               is the render's Rice planning
     quarter_counts  csrc/quarter_counts.cu  K8 _quarter_counts_kernel
                                                (quarter_counts_pallas)
 
 Each source says what bounds it and how it is laid out. The dispatching
 wrappers with their checks, and the plain versions beside them, are
 ops/analysis.py (autocorr, analyze_from_r), ops/filters.py (fir_rice) and
-ops/rice.py (ksel, quarter_counts). The launchers here take checked,
+ops/rice.py (ksel, rice_plan, quarter_counts). The launchers here take checked,
 contiguous tensors on one CUDA device, allocate the outputs, launch on the
 current stream and count the launch.
 """
@@ -49,6 +51,9 @@ KERNELS = {
     "quarter_counts": ("sela_quarter_counts", "quarter_counts.cu",
                        "sela_quarter_counts", [_P, _P, _P, _I, _I], ()),
 }
+# further C entry points of a kernel's library: symbol -> (kernel, argtypes
+# without the stream); a launch through one counts as a launch of the kernel
+ENTRIES = {"sela_rice_plan": ("ksel", [_P, _P, _P, _P, _P, _P, _P, _I, _I])}
 launches = {name: 0 for name in KERNELS}   # since the last reset (chip_smoke.py)
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -59,18 +64,24 @@ def load(kernel: str) -> ctypes.CDLL:
         lib_name, source, symbol, argtypes, flags = KERNELS[kernel]
         lib = ctypes.CDLL(build_cuda(lib_name, os.path.join(_CSRC, source),
                                      list(flags)))
-        fn = getattr(lib, symbol)
-        fn.argtypes = [*argtypes, _P]
-        fn.restype = _I
+        symbols = [(symbol, argtypes)] + [
+            (entry, types) for entry, (k, types) in ENTRIES.items()
+            if k == kernel]
+        for entry, types in symbols:
+            fn = getattr(lib, entry)
+            fn.argtypes = [*types, _P]
+            fn.restype = _I
         _libs[kernel] = lib
     return _libs[kernel]
 
 
-def _launch(kernel: str, device: torch.device, rows: int, *args) -> None:
-    """Launch one kernel over `rows` rows (none for an empty batch)."""
+def _launch(kernel: str, device: torch.device, rows: int, *args,
+            entry: str | None = None) -> None:
+    """Launch one kernel, through its main C entry point or `entry`, over
+    `rows` rows (none for an empty batch)."""
     if device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {device}")
-    fn = getattr(load(kernel), KERNELS[kernel][2])
+    fn = getattr(load(kernel), entry or KERNELS[kernel][2])
     if rows == 0:
         return
     with torch.cuda.device(device):
@@ -122,6 +133,22 @@ def ksel_cuda(counts: torch.Tensor, n_valid: torch.Tensor, k_max: int):
     _launch("ksel", counts.device, B, counts.data_ptr(), n_valid.data_ptr(),
             k.data_ptr(), bits.data_ptr(), B, k_max)
     return k, bits
+
+
+def rice_plan_cuda(counts_res: torch.Tensor, q: torch.Tensor,
+                   eff_order: torch.Tensor, n_valid: torch.Tensor, k_max: int,
+                   quarter_counts: torch.Tensor | None):
+    """K6's render entry: counts_res and q [B, 32], eff_order and n_valid
+    [B], quarter_counts [B, 4, 32] or None (int32) -> (q_eff [B, 32],
+    [6, B] k_res, kr4, k_coeff, nw_res, nw_coeff, block_bits)."""
+    B = q.shape[0]
+    q_eff = torch.empty_like(q)
+    out = torch.empty((6, B), dtype=torch.int32, device=q.device)
+    qc = 0 if quarter_counts is None else quarter_counts.data_ptr()
+    _launch("ksel", q.device, B, counts_res.data_ptr(), q.data_ptr(),
+            eff_order.data_ptr(), n_valid.data_ptr(), qc, q_eff.data_ptr(),
+            out.data_ptr(), B, k_max, entry="sela_rice_plan")
+    return q_eff, out
 
 
 def quarter_counts_cuda(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:

@@ -12,18 +12,21 @@ for every counts <= n <= 65535.
 Zigzag values are held as int64 in [0, 2^32): `>>` on torch.uint32 raises
 on the CPU, and int64 keeps every shift and comparison plain.
 
-`ksel` is the dispatching wrapper of the K6 kernel (kernels/encode.py,
-csrc/ksel.cu); `k_and_bits_reference` is its plain version. `quarter_counts`
-is the wrapper of K8 (csrc/quarter_counts.cu), the per-quarter bit counts
-of partitioned-residue planning (FORMAT.md §Partitioned residues), and
-`quarter_counts_reference` its plain version.
+`ksel` is the dispatching wrapper of the K6 kernel's generic entry
+(kernels/encode.py, csrc/ksel.cu); `k_and_bits_reference` is its plain
+version. `rice_plan` is the wrapper of K6's render entry, all of the encode
+render's Rice planning in one launch, and `rice_plan_reference` its plain
+version. `quarter_counts` is the wrapper of K8 (csrc/quarter_counts.cu), the
+per-quarter bit counts of partitioned-residue planning (FORMAT.md
+§Partitioned residues), and `quarter_counts_reference` its plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from ..format import FRAME_SIZE, RESIDUE_PARTS, RICE_K_ESCAPE, RICE_K_MAX
-from ..kernels.encode import ksel_cuda, quarter_counts_cuda
+from ..format import (FRAME_SIZE, RESIDUE_PARTS, RICE_K_ESCAPE, RICE_K_MAX,
+                      RICE_PARTITION_MARKER)
+from ..kernels.encode import ksel_cuda, quarter_counts_cuda, rice_plan_cuda
 
 NBITS = 32   # columns of a bit-count row: bit j of the 32-bit zigzag value
 
@@ -164,6 +167,100 @@ def quarter_counts(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 def block_words(bits: torch.Tensor) -> torch.Tensor:
     """ceil(bits / 32): the u32 words of a block."""
     return (bits + 31) >> 5
+
+
+# rice_plan's outputs besides q_eff, each [B] int32, in the kernel's order
+PLAN_KEYS = ("k_res", "kr4", "k_coeff", "nw_res", "nw_coeff", "block_bits")
+
+
+def rice_plan_reference(counts_res: torch.Tensor, q: torch.Tensor,
+                        eff_order: torch.Tensor, n_valid: torch.Tensor,
+                        k_max: int, quarter_counts=None) -> dict:
+    """Plain version of K6's render entry: the encode render's Rice planning
+    of [B] rows (the JAX _render_rows from K5 on).
+
+    counts_res [B, 32] (K5's residue bit counts), q [B, 32] (the quantized
+    reflections), eff_order and n_valid [B] (K5's), all int32; with
+    quarter_counts [B, 4, 32] (K8's) the partitioned-residue decision too.
+    Returns q_eff [B, 32] (q zeroed from eff_order on) and, each [B] int32,
+    the residue block's k_res and nw_res, the coefficient block's k_coeff
+    and nw_coeff, kr4 and block_bits: a row is partitioned (k_res =
+    RICE_PARTITION_MARKER, its sub-ks byte-packed in kr4, nw_res its
+    quarters' words) where that is strictly smaller, the oracle's rule, and
+    block_bits = padded-word bits of both blocks plus a partitioned row's 4
+    sub-k bytes (the exact mid/side rule's metric)."""
+    cols = torch.arange(NBITS, device=q.device)[None, :]
+    q_eff = torch.where(cols < eff_order[:, None], q, 0)
+    # q_eff is zero from eff_order on, so its codes need no further mask
+    counts = [counts_res, bit_counts(zigzag(q_eff))]
+    ns = [n_valid, eff_order]
+    B = q.shape[0]
+    if quarter_counts is not None:
+        counts.append(quarter_counts.view(RESIDUE_PARTS * B, NBITS))
+        ns.append(quarter_bounds(n_valid).diff(dim=1)
+                  .reshape(RESIDUE_PARTS * B))
+    k_all, bits_all = k_and_bits_reference(torch.cat(counts), torch.cat(ns),
+                                           k_max)
+    k_res, nw_res = k_all[:B], block_words(bits_all[:B])
+    nw_coeff = block_words(bits_all[B : 2 * B])
+    kr4 = header_bytes = torch.zeros_like(eff_order)
+    if quarter_counts is not None:
+        kq = k_all[2 * B :].view(B, RESIDUE_PARTS)
+        bits_q = bits_all[2 * B :].view(B, RESIDUE_PARTS)
+        nw_part = block_words(bits_q.sum(dim=1, dtype=torch.int32))
+        # the partitioned block pays one sub-k byte a quarter in its header
+        use_part = (n_valid >= RESIDUE_PARTS) & (
+            32 * nw_part + 8 * RESIDUE_PARTS < 32 * nw_res)
+        packed = kq[:, 0]
+        for i in range(1, RESIDUE_PARTS):
+            packed = packed | (kq[:, i] << (8 * i))   # sub-ks <= 31: no sign
+        kr4 = torch.where(use_part, packed, 0)
+        k_res = torch.where(use_part, RICE_PARTITION_MARKER, k_res)
+        nw_res = torch.where(use_part, nw_part, nw_res)
+        header_bytes = use_part.to(torch.int32) * RESIDUE_PARTS
+    return dict(q_eff=q_eff, k_res=k_res, kr4=kr4, k_coeff=k_all[B : 2 * B],
+                nw_res=nw_res, nw_coeff=nw_coeff,
+                block_bits=32 * (nw_res + nw_coeff) + 8 * header_bytes)
+
+
+def rice_plan(counts_res: torch.Tensor, q: torch.Tensor,
+              eff_order: torch.Tensor, n_valid: torch.Tensor,
+              k_max: int = RICE_K_MAX, quarter_counts=None) -> dict:
+    """The encode render's Rice planning (see rice_plan_reference) for
+    counts <= n <= 65535, 0 <= eff_order <= 32 and any q.
+
+    On CPU tensors this runs the plain version; on CUDA tensors it launches
+    K6's render entry (csrc/ksel.cu), one launch for all of it, or raises —
+    there is no fallback.
+    """
+    B = q.shape[0] if q.dim() else -1
+    ins = dict(counts_res=counts_res, q=q, eff_order=eff_order,
+               n_valid=n_valid)
+    shapes = dict(counts_res=(B, NBITS), q=(B, NBITS), eff_order=(B,),
+                  n_valid=(B,))
+    if quarter_counts is not None:
+        ins["quarter_counts"] = quarter_counts
+        shapes["quarter_counts"] = (B, RESIDUE_PARTS, NBITS)
+    for name, t in ins.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"rice_plan needs int32 {name}, got {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"rice_plan needs {name} {list(shapes[name])}, "
+                             f"got {list(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"rice_plan needs a contiguous {name}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device} but q on {q.device}")
+    if not 0 <= k_max <= RICE_K_MAX:
+        raise ValueError(f"rice_plan: k_max {k_max} outside [0, {RICE_K_MAX}]")
+    if q.device.type == "cpu":
+        return rice_plan_reference(counts_res, q, eff_order, n_valid, k_max,
+                                   quarter_counts)
+    if q.device.type != "cuda":
+        raise ValueError(f"rice_plan: unsupported device {q.device}")
+    q_eff, out = rice_plan_cuda(counts_res, q, eff_order, n_valid, k_max,
+                                quarter_counts)
+    return dict(q_eff=q_eff, **dict(zip(PLAN_KEYS, out)))
 
 
 def plan_blocks(values: torch.Tensor, n_valid: torch.Tensor,

@@ -7,11 +7,11 @@ runs on a machine that has only PyTorch:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (`--noconftest` because tests/conftest.py sets JAX up.) Comparisons of the
-normative integer kernels (K1, K2/K7, K5, K6, K8) are exact. K3 is held to
-|r - r_plain| <= 1e-5 r[0] a row (its sums run in another order than
-torch's); K4, given the same r, to identical order and q and a cost within
-one float32 rounding, since it runs the plain version's IEEE operations in
-the same order.
+normative integer kernels (K1, K2/K7, K5, K6 and its render entry, K8) are
+exact. K3 is held to |r - r_plain| <= 1e-5 r[0] a row (its sums run in
+another order than torch's); K4, given the same r, to identical order and q
+and a cost within one float32 rounding, since it runs the plain version's
+IEEE operations in the same order.
 """
 import numpy as np
 import pytest
@@ -272,6 +272,87 @@ def test_ksel_kernel_matches_plain(dev, B, k_max):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _plan_rows(rng, B: int, edges: bool, dev):
+    """K6's render inputs on the card (counts_res, q, eff_order, n_valid,
+    quarter_counts): residues whose scale changes from quarter to quarter,
+    counted by the plain versions, q in [-64, 63], eff_order 0..32, n_valid
+    2,048 on most rows with tails. edges adds n_valid 0, 3, 4, 5, 2,047 and
+    2,048 on every other row, eff_order 0, 1, 31 and 32 on four rows of
+    five, q rows of -64, 63, INT32_MIN, INT32_MAX and both extremes, and
+    rows of INT32_MIN residues (counts = n in every column: the escape)."""
+    N = 2048
+    nv = np.full(B, N, np.int32)
+    nv[3::16] = rng.integers(0, N, len(nv[3::16]))
+    eff = rng.integers(0, 33, B).astype(np.int32)
+    q = rng.integers(-64, 64, (B, MAX_ORDER)).astype(np.int32)
+    scale = 2.0 ** rng.uniform(0, 14, (B, 4))
+    e = np.round(rng.laplace(0, 1, (B, N)) * np.repeat(scale, N // 4, axis=1))
+    e = e.astype(np.int32)
+    if edges:
+        nv[::2] = np.resize(np.array([0, 3, 4, 5, N - 1, N], np.int32),
+                            len(nv[::2]))
+        for i, v in enumerate((0, 1, 31, 32)):
+            eff[i::5] = v
+        q[0::9], q[1::9], q[2::9], q[3::9] = -64, 63, -(1 << 31), (1 << 31) - 1
+        q[4::9] = np.where(np.arange(MAX_ORDER) % 2, -(1 << 31), (1 << 31) - 1)
+        e[5::11] = -(1 << 31)
+    et, nvt = torch.from_numpy(e).to(dev), torch.from_numpy(nv).to(dev)
+    valid = torch.arange(N, device=dev)[None, :] < nvt[:, None]
+    counts = ops_rice.bit_counts(ops_rice.zigzag(torch.where(valid, et, 0)))
+    qc = ops_rice.quarter_counts_reference(et, nvt)
+    return (counts, torch.from_numpy(q).to(dev), torch.from_numpy(eff).to(dev),
+            nvt, qc)
+
+
+# K6's render entry: one row; the est rule's 1,024 winner rows and the exact
+# rule's 2,048 candidate rows of a 512-frame stereo chunk; 1,027 edge rows
+PLAN_CASES = [pytest.param(b, False, id=str(b)) for b in (1, 1024, 2048)] + [
+    pytest.param(1027, True, id="1027-edges")]
+
+
+@pytest.mark.parametrize("B,edges", PLAN_CASES)
+@pytest.mark.parametrize("partition", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("k_max", [30, 7, 0])
+def test_rice_plan_kernel_matches_plain(dev, B, edges, partition, k_max):
+    rng = np.random.default_rng(B + 10 * k_max + partition)
+    counts, q, eff, nv, qc = _plan_rows(rng, B, edges, dev)
+    qc = qc if partition else None
+    before = k_enc.launches["ksel"]
+    got = ops_rice.rice_plan(counts, q, eff, nv, k_max, qc)
+    assert k_enc.launches["ksel"] == before + 1
+    want = ops_rice.rice_plan_reference(counts, q, eff, nv, k_max, qc)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("partition", [1, 4])
+@pytest.mark.parametrize("ms_mode", ["est", "exact"])
+def test_encode_step_plans_as_plain_on_card(dev, monkeypatch, ms_mode,
+                                            partition):
+    """One K6 launch plans a chunk's render, and the step's outputs equal
+    those of the same step with the plain planning on the card."""
+    from sela_tpu_torch.codec import pipeline
+
+    rng = np.random.default_rng(partition)
+    rows = _audio(rng, 2, 64 * 2048)
+    x = torch.from_numpy(rows.reshape(2, 64, 2048).transpose(1, 0, 2)
+                         .copy()).to(dev)
+    nv = torch.full((64,), 2048, dtype=torch.int32, device=dev)
+    nv[-1] = 1501
+    kwargs = dict(ms_mode=ms_mode, partition=partition)
+    before = k_enc.launches["ksel"]
+    got = pipeline.encode_step(x, nv, **kwargs)
+    assert k_enc.launches["ksel"] == before + 1
+    monkeypatch.setattr(pipeline, "rice_plan", ops_rice.rice_plan_reference)
+    want = pipeline.encode_step(x, nv, **kwargs)
+    assert k_enc.launches["ksel"] == before + 1
+    torch.cuda.synchronize()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
 GRID8 = [(b, n) for b in (1, 77, 1024) for n in (1, 100, 2048)]
 # K8's edges: 1,027 rows, n_valid on the quarters' and the lanes' edges,
 # rows whose widest zigzag code has 1, 31 and 32 bits (and the residue
@@ -329,6 +410,10 @@ def test_encode_kernel_wrappers_check_cuda_inputs(dev):
         ops_rice.quarter_counts(x, o.cpu())
     with pytest.raises(ValueError):   # rows over 2,048 samples
         ops_rice.quarter_counts(x, o)
+    with pytest.raises(ValueError):
+        ops_rice.rice_plan(c, c, o, o.cpu())
+    with pytest.raises(TypeError):
+        ops_rice.rice_plan(c, c.long(), o, o)
 
 
 @pytest.mark.parametrize("bits", [16, 24, 32])

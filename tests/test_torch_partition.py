@@ -268,9 +268,9 @@ def test_v2_never_grows_on_stationary():
 
 
 def test_k8_runs_once_a_chunk_under_v2_only(monkeypatch):
-    """Under v2 each chunk's render calls K8's wrapper once and K6's once;
-    under v1 it never calls K8's."""
-    calls = {"quarter_counts": 0, "ksel": 0}
+    """Under v2 each chunk's render calls K8's wrapper once and K6's render
+    entry (rice_plan) once; under v1 it never calls K8's."""
+    calls = {"quarter_counts": 0, "rice_plan": 0}
 
     def spy(name, fn):
         def wrapped(*args, **kwargs):
@@ -279,12 +279,12 @@ def test_k8_runs_once_a_chunk_under_v2_only(monkeypatch):
         monkeypatch.setattr(pipeline, name, wrapped)
 
     spy("quarter_counts", port_rice.quarter_counts)
-    spy("ksel", port_rice.ksel)
+    spy("rice_plan", port_rice.rice_plan)
     w = percussive_wav(0.6, seed=6)                  # 13 frames: 7 chunks
     encode_wav(w, chunk_frames=2, device="cpu")
-    assert calls == {"quarter_counts": 0, "ksel": 7}
+    assert calls == {"quarter_counts": 0, "rice_plan": 7}
     encode_wav(w, chunk_frames=2, profile=V2, device="cpu")
-    assert calls == {"quarter_counts": 7, "ksel": 14}
+    assert calls == {"quarter_counts": 7, "rice_plan": 14}
 
 
 # ------------------------------------------------------------ (g) CLI --

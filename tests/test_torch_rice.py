@@ -4,8 +4,13 @@ The port's zigzag, bit counts, shift sums, k selection and plan_blocks must
 equal, bit for bit: sela_tpu.ops.rice, the Pallas kernel `ksel_pallas` in
 interpret mode, and the numpy oracle's optimal_k. Rows cover random music
 -like values, empty rows, all-zero rows and INT32_MIN rows (which force the
-verbatim escape), with k_max in {30, 7, 0}. Every comparison is exact: the
-stage is normative integer code.
+verbatim escape), with k_max in {30, 7, 0}. The render's planning
+(`rice_plan_reference`, K6's render entry's plain version) is held to the
+JAX package's: plan_blocks for the coefficient block,
+k_and_bits_from_counts for the residue block and, under partitioned
+residues, ksel_pallas in interpret mode on the quarters and the JAX
+render's decision. Every comparison is exact: the stage is normative
+integer code.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -144,3 +149,126 @@ def test_ksel_rejects_bad_inputs():
         port_rice.ksel(c, n, 31)
     with pytest.raises(ValueError):
         port_rice.ksel(torch.zeros((32, 4), dtype=torch.int32).t(), n)
+
+
+# ------------------------------------------- the render's planning (K6) --
+
+PLAN_B, PLAN_N = 1027, 2048
+NV_EDGES = (0, 3, 4, 5, PLAN_N - 1, PLAN_N)
+EFF_EDGES = (0, 1, 31, 32)
+
+
+def _plan_inputs(seed: int):
+    """The render's planning inputs at [1,027] rows: residues whose scale
+    changes from quarter to quarter (so both the plain and the partitioned
+    form win somewhere) and rows of INT32_MIN residues (every code 2^32 - 1:
+    counts = n in every column, the escape); n_valid 0, 3, 4, 5, 2,047 and
+    2,048 on every other row; eff_order 0, 1, 31 and 32 on four rows of
+    five; q in [-64, 63] with rows of -64, 63, INT32_MIN, INT32_MAX and both
+    extremes. Returns numpy (counts_res, quarter_counts, q, eff_order,
+    n_valid)."""
+    rng = np.random.default_rng(seed)
+    B, N = PLAN_B, PLAN_N
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    nv[::2] = np.resize(np.array(NV_EDGES, np.int32), len(nv[::2]))
+    scale = 2.0 ** rng.uniform(0, 16, (B, 4))
+    e = rng.laplace(0, 1, (B, N)) * np.repeat(scale, N // 4, axis=1)
+    e = np.clip(np.round(e), I32_MIN, I32_MAX).astype(np.int32)
+    e[5::11] = I32_MIN
+    et, nvt = torch.from_numpy(e), torch.from_numpy(nv)
+    counts = port_rice.bit_counts(port_rice.zigzag(
+        torch.from_numpy(_masked(e, nv)))).numpy()
+    qc = port_rice.quarter_counts_reference(et, nvt).numpy()
+    eff = rng.integers(0, 33, B).astype(np.int32)
+    for i, v in enumerate(EFF_EDGES):
+        eff[i::5] = v
+    q = rng.integers(-64, 64, (B, 32)).astype(np.int32)
+    q[0::9], q[1::9], q[2::9], q[3::9] = -64, 63, I32_MIN, I32_MAX
+    q[4::9] = np.where(np.arange(32) % 2, I32_MIN, I32_MAX)
+    return counts, qc, q, eff, nv
+
+
+def _jax_plan(counts, qc, q, eff, nv, k_max: int, partition: bool) -> dict:
+    """The JAX package's planning of the same rows: plan_blocks for the
+    coefficient block, k_and_bits_from_counts for the residue block and,
+    under partitioned residues, ksel_pallas (interpret mode) on the quarters
+    and the JAX _render_rows' decision (sela_tpu/codec/pipeline.py:138-158)."""
+    from sela_tpu.format import RICE_PARTITION_MARKER
+
+    nvj, effj = jnp.asarray(nv), jnp.asarray(eff)
+    q_eff = jnp.where(jnp.arange(32)[None, :] < effj[:, None], jnp.asarray(q), 0)
+    k_coeff, _, nw_coeff = jax_rice.plan_blocks(q_eff, effj, k_max)
+    k_res, bits_res = jax_rice.k_and_bits_from_counts(jnp.asarray(counts), nvj,
+                                                      k_max)
+    nw_res = jax_rice.block_words(bits_res)
+    kr4 = extra = jnp.zeros_like(effj)
+    if partition:
+        cols = jnp.arange(4, dtype=jnp.int32)[None, :]
+        lo, hi = (cols * nvj[:, None]) // 4, ((cols + 1) * nvj[:, None]) // 4
+        kq, bq = ksel_pallas(jnp.asarray(qc).reshape(-1, 32),
+                             (hi - lo).reshape(-1), k_max, interpret=True)
+        kq = kq.reshape(-1, 4)
+        nw_part = jax_rice.block_words(bq.reshape(-1, 4).sum(axis=1))
+        use_part = (nvj >= 4) & (32 * nw_part + 8 * 4 < 32 * nw_res)
+        packed = kq[:, 0] | (kq[:, 1] << 8) | (kq[:, 2] << 16) | (kq[:, 3] << 24)
+        kr4 = jnp.where(use_part, packed, 0)
+        k_res = jnp.where(use_part, RICE_PARTITION_MARKER, k_res)
+        nw_res = jnp.where(use_part, nw_part, nw_res)
+        extra = jnp.where(use_part, 8 * 4, 0)
+    out = dict(q_eff=q_eff, k_res=k_res, kr4=kr4, k_coeff=k_coeff,
+               nw_res=nw_res, nw_coeff=nw_coeff,
+               block_bits=32 * (nw_res + nw_coeff) + extra)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("partition", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("k_max", [30, 7, 0])
+def test_rice_plan_plain_matches_jax_planning(k_max, partition):
+    """rice_plan_reference (and the wrapper on the CPU) equals the JAX
+    package's planning of the render, bit for bit, at 1,027 rows holding
+    every edge of _plan_inputs."""
+    counts, qc, q, eff, nv = _plan_inputs(11 + k_max)
+    args = [torch.from_numpy(a) for a in (counts, q, eff, nv)]
+    qct = torch.from_numpy(qc) if partition else None
+    got = port_rice.rice_plan_reference(*args, k_max, qct)
+    want = _jax_plan(counts, qc, q, eff, nv, k_max, partition)
+    assert set(got) == set(want) == {"q_eff", *port_rice.PLAN_KEYS}
+    for key, w in want.items():
+        assert got[key].dtype == torch.int32, key
+        np.testing.assert_array_equal(got[key].numpy(), w, err_msg=key)
+    wrapped = port_rice.rice_plan(*args, k_max, qct)
+    assert all(torch.equal(wrapped[k], got[k]) for k in got)
+    # the edges are where expected: empty blocks, escapes (INT32_MIN
+    # residues escape in every quarter too, so those rows stay plain),
+    # partitioned rows under v2 only
+    k_res = got["k_res"].numpy()
+    assert (k_res[nv == 0] == 0).all() and (got["nw_res"].numpy()[nv == 0] == 0).all()
+    assert (k_res[(np.arange(PLAN_B) % 11 == 5) & (nv > 0)] == 31).all()
+    assert ((got["k_coeff"].numpy() == 31) & (eff > 0)).any()
+    n_part = int((k_res == 32).sum())
+    assert 0 < n_part < PLAN_B if partition else n_part == 0
+
+
+def test_rice_plan_rejects_bad_inputs():
+    c = torch.zeros((4, 32), dtype=torch.int32)
+    n = torch.zeros(4, dtype=torch.int32)
+    qc = torch.zeros((4, 4, 32), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        port_rice.rice_plan(c.long(), c, n, n)
+    with pytest.raises(TypeError):
+        port_rice.rice_plan(c, c, n, n, 30, qc.long())
+    with pytest.raises(ValueError):
+        port_rice.rice_plan(c[:, :31].contiguous(), c, n, n)
+    with pytest.raises(ValueError):
+        port_rice.rice_plan(c, c, n[:3], n)
+    with pytest.raises(ValueError):
+        port_rice.rice_plan(c, c, n, n, 30, qc[:, :3].contiguous())
+    with pytest.raises(ValueError):
+        port_rice.rice_plan(c, torch.zeros((32, 4), dtype=torch.int32).t(), n, n)
+    for k_max in (-1, 31):
+        with pytest.raises(ValueError):
+            port_rice.rice_plan(c, c, n, n, k_max)
+    with pytest.raises(ValueError):   # two devices
+        port_rice.rice_plan(c, c.to("meta"), n, n)
+    with pytest.raises(ValueError):   # neither the CPU nor CUDA
+        port_rice.rice_plan(*(t.to("meta") for t in (c, c, n, n)))
