@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — require CUDA, print the card's name, count, power limit and
              maximum SM clock;
-2. build   — build the seven CUDA kernel libraries and the native bit I/O
+2. build   — build the eight CUDA kernel libraries and the native bit I/O
              library from this checkout's sources, all compilers started
              together; print the build seconds, what `-Xptxas -v` says and
              each library's static SASS instruction mix (`cuobjdump`);
@@ -97,7 +97,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
 9b. plain planning — the `cd_180s` v1 and `perc_20s` v2 encodes again with
              `pipeline.rice_plan` set to its plain version on the card (a
              check, not a fallback): the streams must be byte-identical;
-10. each kernel's share of its bound, the `kernels` JSON line, then the
+             the Rice packer must not have run in phases 7-9b;
+10. packer — the device Rice packer (csrc/pack.cu) against its plain version
+             on the card and against the host packer's words, exactly: (a)
+             the residues of the `cd_180s` v1 encode's first 512-frame chunk
+             at their planned k (escape rows left out), whose word counts
+             must be the plan's; (b) forced k = 0, 1, 5, 13 and 30 on
+             values up to a few bits past the k's range; (c) the edges:
+             1,027 rows with n_valid 0, 1, 31, 32, 33, 2,047 and 2,048, k =
+             30 rows whose patterns straddle words, rows over max_words, and
+             the word buffer in the output (max_words over 12,000); timed on
+             (a) warm and cold (values rotated over 7 copies) and at 1, 132
+             and all rows, beside the host packer on the same blocks;
+11. the slice's paths — `bench.bench_e2e` on `cd_180s` (encode v1 and
+             decode, each the minimum of 3 walls), `bench.bench_batch64` (64
+             files through the corpus codec, bit-exact, K1, K3-K6 and the IIR
+             launched), `decode_stream` of the `cd_180s` v1 stream (the blocks
+             equal decode_sela's PCM; time to the first block and in all),
+             `bench.bench_host_pack` and `bench.bench_device_pack` (the
+             packer A/B, the packer launched) at the CD chunk's [1,024,
+             2,048], and `bench.bench_device_pipeline` at 8 chunks of 512
+             frames;
+12. each kernel's share of its bound, the `kernels` JSON line, then the
    card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -141,6 +162,8 @@ QUARTER_SAMPLE_OPS = 8              # zigzag (3), quarter index (3 compares,
                                     # 2 adds) per valid sample
 KSEL_STEP_OPS = 8                   # 64-bit shift-add, cost, compare, select
 RICE_PLAN_ROW_OPS = 16              # block words, the v2 decision, packing
+PACK_VALUE_OPS = 16                 # zigzag, code length and its 64-bit sum,
+                                    # pattern, stop bit, word and shift, OR
 
 FRAME = 2048
 ROWS_MAIN = 1024    # rows of one default 512-frame stereo chunk
@@ -392,6 +415,15 @@ def levinson_bound(B: int) -> tuple[float, str]:
     return bound_ms(B * (33 * 4 + 4 + 4 + 32 * 4 + 4), B * flops, FLOPS_PER_S)
 
 
+def pack_bound(nv: np.ndarray, N: int, max_words: int) -> tuple[float, str]:
+    """The Rice packer on these rows: reads the values up to n_valid, k and
+    n_valid, writes max_words words and nwords a row; its per-value work."""
+    B = len(nv)
+    valid = np.clip(nv.astype(np.int64), 0, N).sum()
+    return bound_ms(valid * 4 + B * (4 + 4 + max_words * 4 + 8),
+                    valid * PACK_VALUE_OPS)
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
@@ -430,7 +462,7 @@ def sass_mix(cuobjdump: str, lib: str) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
 
 
-def phase_build(k_lpc, k_iir, k_enc, bitio, build_log, build_dir,
+def phase_build(k_lpc, k_iir, k_enc, k_pack, bitio, build_log, build_dir,
                 nvcc) -> None:
     log("== phase 2: build")
 
@@ -441,7 +473,7 @@ def phase_build(k_lpc, k_iir, k_enc, bitio, build_log, build_dir,
 
     t0 = time.perf_counter()
     jobs = {"sela_lpc": k_lpc.load, "sela_iir": k_iir.load,
-            "selabitio": bitio.load}
+            "sela_pack": k_pack.load, "selabitio": bitio.load}
     for kernel, spec in k_enc.KERNELS.items():
         jobs[spec[0]] = (lambda kernel=kernel: k_enc.load(kernel))
     with ThreadPoolExecutor(len(jobs)) as ex:
@@ -1308,6 +1340,206 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                 partitioned_share=part_share, stream=buf)
 
 
+def pack_case(torch, ops_pack, ops_rice, bitio, vals, ks, nv, max_words,
+              label) -> int:
+    """The packer's wrapper on the card against its plain version on the
+    card, exactly, and against the host packer's words (up to max_words a
+    row); returns the largest difference (0)."""
+    dev = torch.device("cuda")
+    v, k, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (vals, ks, nv))
+    got = ops_pack.pack_blocks(v, k, n, max_words)
+    valid = torch.arange(v.shape[1], device=dev)[None, :] < n[:, None]
+    want = ops_pack.pack_blocks_reference(
+        torch.where(valid, ops_rice.zigzag(v), 0), k, n, max_words)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    exact = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    words, counts = bitio.pack_blocks_flat(
+        vals[np.arange(vals.shape[1])[None, :] < nv[:, None]],
+        np.concatenate([[0], np.cumsum(nv.astype(np.int64))[:-1]]), nv, ks)
+    dense = got[0].cpu().numpy().view(np.uint32)
+    ends = np.cumsum(counts)
+    host = (np.array_equal(got[1].cpu().numpy(), counts) and all(
+        np.array_equal(dense[b, : min(c, max_words)], words[e - c : e - c
+                                                            + min(c, max_words)])
+        for b, (c, e) in enumerate(zip(counts, ends))))
+    over = int((counts > max_words).sum())
+    log(f"packer {label} [{len(nv)}, {vals.shape[1]}] max_words {max_words}: "
+        f"exact={exact} max_abs_err={err} host packer's words={host} (rows over "
+        f"max_words {over}, words {int(counts.sum())})")
+    check(exact and host, f"the packer disagrees ({label})")
+    return err
+
+
+def phase_pack(torch, pipeline, encoder, ops_pack, ops_rice, k_pack, bitio,
+               cd) -> dict:
+    log("== phase 10: the Rice packer (csrc/pack.cu) against its plain version "
+        "and the host packer")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    # (a) one 512-frame chunk of the cd_180s v1 encode, its residues at
+    # their planned k (v1 has no partitioned rows; escape rows are left out)
+    x, nv_f = encoder.frame_batches(cd)
+    out = pipeline.encode_step(torch.from_numpy(x[:512]).to(dev),
+                               torch.from_numpy(nv_f[:512]).to(dev))
+    k_all = out["k_res"].reshape(-1).cpu().numpy()
+    sel = np.flatnonzero(k_all <= 30)
+    vals = out["residues"].reshape(-1, FRAME).cpu().numpy()[sel]
+    ks = k_all[sel]
+    nv = np.repeat(nv_f[:512], 2)[sel]
+    planned = out["nw_res"].reshape(-1).cpu().numpy()[sel]
+    mw = int(planned.max())
+    log(f"(a) cd_180s chunk 0: {len(sel)} of {len(k_all)} rows plain (escapes "
+        f"{int((k_all == 31).sum())}), k {np.bincount(ks, minlength=31).tolist()}")
+    errs = [pack_case(torch, ops_pack, ops_rice, bitio, vals, ks, nv, mw,
+                      "(a) cd_180s chunk 0")]
+    # the packer's word counts are the device plan's (K6's nw_res)
+    counts = ops_pack.pack_blocks(*(torch.from_numpy(a).to(dev)
+                                    for a in (vals, ks, nv)), mw)[1]
+    check(np.array_equal(counts.cpu().numpy(), planned),
+          "the packer's word counts differ from the plan's nw_res")
+    # (b) forced k, values up to a few bits past the k's range
+    for kf in (0, 1, 5, 13, 30):
+        amp = 1 << min(kf + 3, 31)
+        vb = rng.integers(-amp, amp, (132, FRAME), dtype=np.int64).astype(np.int32)
+        kb, nb = np.full(132, kf, np.int32), np.full(132, FRAME, np.int32)
+        mwb = int(ops_pack.pack_blocks(*(torch.from_numpy(a) for a in (vb, kb, nb)),
+                                       1)[1].max())
+        errs.append(pack_case(torch, ops_pack, ops_rice, bitio, vb, kb, nb, mwb,
+                              f"(b) k={kf}"))
+    # (c) the edges: 1,027 rows, n_valid on a thread's and a warp's edges,
+    # k = 30 rows whose patterns straddle words, rows over max_words, and
+    # the word buffer in the output row (max_words > 12,000)
+    B = 1027
+    scale = 10.0 ** rng.uniform(0, 6, (B, 1))
+    vc = np.clip(np.round(rng.laplace(0, 1, (B, FRAME)) * scale),
+                 -(1 << 31), (1 << 31) - 1).astype(np.int32)
+    vc[3::11] = np.resize(np.array([(1 << 30) - 1, -(1 << 30), 1, 0, -1, 7],
+                                   np.int32), FRAME)
+    nc = np.resize(np.array([0, 1, 31, 32, 33, FRAME - 1, FRAME], np.int32), B)
+    # k from 3 below to 1 above each row's scale: unary runs of up to ~2^4
+    kc = np.clip(np.log2(scale[:, 0]).astype(np.int32)
+                 + rng.integers(-3, 2, B), 0, 30).astype(np.int32)
+    kc[3::11] = 30
+    full = int(ops_pack.pack_blocks(*(torch.from_numpy(a) for a in (vc, kc, nc)),
+                                    1)[1].max())
+    for mwc in (64, full, 12001):
+        errs.append(pack_case(torch, ops_pack, ops_rice, bitio, vc, kc, nc, mwc,
+                              "(c) edges"))
+
+    # timing on (a): the launcher (the wrapper reads k, a sync)
+    v, k, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (vals, ks, nv))
+    ms = time_kernel(torch, lambda: k_pack.pack_blocks_cuda(v, k, n, mw), 200)
+    # cold: 7 copies of the values (8.4 MB each) and each call's words kept
+    # until its copy comes round again exceed the L2 between two uses
+    copies = [v.clone() for _ in range(7)]
+    ring = [None] * len(copies)
+    calls = iter(range(1 << 30))
+
+    def cold_call(vx):
+        i = next(calls) % len(ring)
+        ring[i] = None
+        ring[i] = k_pack.pack_blocks_cuda(vx, k, n, mw)
+
+    cold = time_kernel_cold(torch, cold_call, copies, 200)
+    del copies, ring
+    valid = torch.arange(FRAME, device=dev)[None, :] < n[:, None]
+    plain = time_plain(torch, lambda: ops_pack.pack_blocks_reference(
+        torch.where(valid, ops_rice.zigzag(v), 0), k, n, mw), 3)
+    rows_ms = {}   # time against rows: 1 row is the launch and one row's chain
+    for b in (1, 132, len(sel)):
+        a_r = [t[:b].contiguous() for t in (v, k, n)]
+        rows_ms[b] = time_kernel(
+            torch, lambda: k_pack.pack_blocks_cuda(*a_r, mw), 200)
+    flat = vals[np.arange(FRAME)[None, :] < nv[:, None]]
+    offs = np.concatenate([[0], np.cumsum(nv.astype(np.int64))[:-1]])
+    host_s = min(timed_once(lambda: bitio.pack_blocks_flat(flat, offs, nv, ks))
+                 for _ in range(5))
+    bms, by = pack_bound(nv, FRAME, mw)
+    log(f"packer [{len(sel)}, {FRAME}] max_words {mw}: kernel {ms:.5f} ms (warm "
+        f"L2), {cold:.5f} ms (cold, 7 copies), plain {plain:.3f} ms, host "
+        f"packer {host_s * 1e3:.3f} ms, bound {bms:.5f} ms ({by}): share "
+        f"{share(bms, ms):.3f} warm, {share(bms, cold):.3f} cold; rows "
+        + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows_ms.items()))
+    return dict(rows=len(sel), max_words=mw, max_abs_err=max(errs), exact=True,
+                ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by,
+                cold_share=share(bms, cold), rows_ms=rows_ms,
+                host_pack_ms=host_s * 1e3)
+
+
+def timed_once(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def phase_slice(torch, bench, decoder, stream, WavData, k_lpc, k_iir, k_enc,
+                k_pack, cd, dec_main, enc_main) -> dict:
+    log("== phase 11: the slice's paths on the card (bench, corpus, stream, "
+        "packer A/B, device pipeline)")
+    w = WavData(44100, 16, cd)
+    e2e = bench.bench_e2e(w, iters=3, label="cd_180s", device="cuda")
+    log(f"cd_180s min of 3 walls: encode v1 {e2e['encode_s']:.4f} s, decode "
+        f"{e2e['decode_s']:.4f} s (single walls of phases 8 and 7: "
+        f"{enc_main['wall_s']:.4f} and {dec_main['wall_s']:.4f} s)")
+
+    k_lpc.launches = k_iir.launches = 0
+    for kernel in k_enc.launches:
+        k_enc.launches[kernel] = 0
+    batch = bench.bench_batch64(iters=3, device="cuda")
+    launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
+    log(f"batch64: encode {batch['encode_s']:.4f} s, decode "
+        f"{batch['decode_s']:.4f} s (min of 3; one file at a time "
+        f"{batch['per_file_encode_s']:.4f} and "
+        f"{batch['per_file_decode_s']:.4f} s), ratio "
+        f"{batch['compression_ratio']:.4f}, bit-exact; launches {launches}")
+    check(all(launches[k] > 0 for k in ENCODE_KERNELS + ("iir",)),
+          f"batch64: a kernel was not launched {launches}")
+
+    buf = enc_main["stream"]
+    want = decoder.decode_sela(buf, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = stream.decode_stream(buf, device="cuda")
+    first = next(blocks)
+    t_first = time.perf_counter() - t0
+    rest = list(blocks)
+    t_total = time.perf_counter() - t0
+    pcm = np.concatenate([first, *rest])
+    same = all(np.array_equal(pcm[:, c], want.channels[c]) for c in range(2))
+    log(f"decode_stream cd_180s (128-frame chunks): {1 + len(rest)} blocks, "
+        f"time to first block {t_first * 1e3:.2f} ms, total {t_total:.4f} s; "
+        f"the blocks equal decode_sela's PCM: {same}")
+    check(same, "decode_stream's blocks differ from decode_sela's PCM")
+
+    host = bench.bench_host_pack(n_blocks=ROWS_MAIN, n_vals=FRAME)
+    k_pack.launches = 0
+    dp = bench.bench_device_pack(n_blocks=ROWS_MAIN, n_vals=FRAME,
+                                 device="cuda")
+    dp_launches = k_pack.launches
+    log(f"packer A/B at [{ROWS_MAIN}, {FRAME}]: kernel {dp['kernel_ms']:.5f} "
+        f"ms, kernel + D2H of its words {dp['kernel_and_fetch_s'] * 1e3:.4f} ms,"
+        f" host packer {dp['host_pack_s'] * 1e3:.4f} ms (bench_host_pack: "
+        f"{host['pack_s'] * 1e3:.4f} ms, counting {host['count_s'] * 1e3:.4f} "
+        f"ms, unpack {host['unpack_s'] * 1e3:.4f} ms); fetch "
+        f"{dp['fetch_bytes_device_pack']} B of words against "
+        f"{dp['fetch_bytes_host_pack']} B of int16 residues; packer launches "
+        f"{dp_launches}")
+    check(dp_launches > 0, "bench_device_pack did not launch the packer")
+    pipe = bench.bench_device_pipeline(60.0, chunk_frames=512, n_chunks=8,
+                                       device="cuda")
+    log(f"device pipeline 512 x 8 frames: encode {pipe['encode_s'] * 1e3:.3f} "
+        f"ms ({pipe['encode_gbps']:.2f} GB/s), decode "
+        f"{pipe['decode_s'] * 1e3:.3f} ms ({pipe['decode_gbps']:.2f} GB/s), "
+        f"round trip bit-exact")
+    return dict(e2e=e2e, batch=batch, batch_launches=launches,
+                stream_first_ms=t_first * 1e3, stream_total_s=t_total,
+                host_pack=host, device_pack=dp, device_pack_launches=dp_launches,
+                pipeline=pipe)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1321,15 +1553,18 @@ def main(argv: list[str]) -> int:
     pkg = os.path.dirname(os.path.abspath(sela_tpu_torch.__file__))
     check(pkg == os.path.join(HERE, "sela_tpu_torch"),
           f"sela_tpu_torch imported from {pkg}, not from this checkout")
-    from sela_tpu_torch.codec import decoder, encoder, pipeline
+    from sela_tpu_torch import bench
+    from sela_tpu_torch.codec import decoder, encoder, pipeline, stream
     from sela_tpu_torch.config import BitstreamProfile
     from sela_tpu_torch.kernels import coeffs as k_lpc
     from sela_tpu_torch.kernels import encode as k_enc
     from sela_tpu_torch.kernels import iir as k_iir
+    from sela_tpu_torch.kernels import pack as k_pack
     from sela_tpu_torch.native import bitio
     from sela_tpu_torch.ops import analysis as ops_analysis
     from sela_tpu_torch.ops import coeffs as ops_coeffs
     from sela_tpu_torch.ops import filters
+    from sela_tpu_torch.ops import pack as ops_pack
     from sela_tpu_torch.ops import rice as ops_rice
     from sela_tpu_torch.ref import codec as ref_codec
     from sela_tpu_torch.ref import container
@@ -1338,7 +1573,7 @@ def main(argv: list[str]) -> int:
     from sela_tpu_torch.utils.build import BUILD_DIR, build_log, nvcc
     from sela_tpu_torch.utils.metrics import Metrics
 
-    phase_build(k_lpc, k_iir, k_enc, bitio, build_log, BUILD_DIR, nvcc)
+    phase_build(k_lpc, k_iir, k_enc, k_pack, bitio, build_log, BUILD_DIR, nvcc)
     enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                 container, k_lpc, k_iir, k_enc)
     v2 = BitstreamProfile(residue_partition=4)
@@ -1371,6 +1606,7 @@ def main(argv: list[str]) -> int:
     clips.append(("int32_10s", c32, 48000, 32))
 
     log("== phase 7: decode end to end")
+    k_pack.launches = 0   # the packer is on none of phases 7-9b's paths
     e2e_args = (torch, decoder, ref_codec, WavData, Metrics, bitio, container,
                 k_lpc, k_iir)
     decoded = {name: phase_e2e(*e2e_args, name, chans, rate, bits,
@@ -1422,6 +1658,14 @@ def main(argv: list[str]) -> int:
                   f"{label}: the plain planning gives another stream")
     finally:
         pipeline.rice_plan = kernel_plan
+    log(f"packer launches in phases 7-9b (encode_wav and decode_sela): "
+        f"{k_pack.launches}")
+    check(k_pack.launches == 0, "the packer ran on the encode or decode path")
+
+    pack = phase_pack(torch, pipeline, encoder, ops_pack, ops_rice, k_pack,
+                      bitio, cd)
+    paths = phase_slice(torch, bench, decoder, stream, WavData, k_lpc, k_iir,
+                        k_enc, k_pack, cd, dec_main, enc_main)
 
     def entry(name, source, replaces, res, launches, library_ms=None, **extra):
         return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
@@ -1455,6 +1699,13 @@ def main(argv: list[str]) -> int:
         entry("quarter_counts", "quarter_counts.cu",
               "sela_tpu/kernels/encode.py:401", k8,
               enc_v2["launches"]["quarter_counts"]),
+        # the packer's path is the bench's A/B: encode_wav packs on the host
+        entry("pack_blocks", "pack.cu",
+              "sela_tpu/ops/pack.py:44 (jnp, not a Pallas kernel)", pack,
+              paths["device_pack_launches"],
+              launches_by_path={"encode_wav and decode_sela": 0,
+                                "bench_device_pack": paths[
+                                    "device_pack_launches"]}),
     ]
     log("share of the bound (bound ms / kernel ms, warm L2): " + ", ".join(
         f"{k['name']} {k['share']:.3f}" for k in kernels)

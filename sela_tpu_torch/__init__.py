@@ -1,9 +1,11 @@
 """`sela_tpu_torch` — the PyTorch/CUDA port of the `sela_tpu` codec.
 
-This slice decodes FORMAT.md `.sela` streams on an NVIDIA GPU:
-container scan and Rice unpack on the host (native C++), then the integer
-Levinson (CUDA kernel, csrc/lpc.cu), the IIR synthesis (CUDA kernel,
-csrc/iir.cu) and the inverse mid/side on the device.
+It encodes WAV to FORMAT.md `.sela` streams and decodes them on an NVIDIA
+GPU (`codec.encoder`, `codec.decoder`), a batch of files at a time
+(`codec.corpus`) or a chunk of frames at a time (`codec.stream`): the
+container and the Rice bitstream on the host (native C++), the analysis,
+the render and the synthesis in hand-written CUDA kernels (`csrc/`). `cli`
+is its command line and `bench` its benchmark.
 
 The package imports torch and numpy and nothing of the JAX package: the
 oracle (`ref`), the constants (`format`), the errors, the native bit I/O

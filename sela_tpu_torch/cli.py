@@ -5,9 +5,16 @@
     python -m sela_tpu_torch.cli decode in.sela out.wav [--cpu] [--chunk-frames N]
     python -m sela_tpu_torch.cli verify in.wav [--cpu] [profile flags]
     python -m sela_tpu_torch.cli info file.sela
+    python -m sela_tpu_torch.cli tag file.sela [--set KEY=VALUE ...] [--clear]
+                                     [--format setg|apev2] [--output PATH]
+    python -m sela_tpu_torch.cli play file.sela [--cpu] [--wav-out out.wav]
+    python -m sela_tpu_torch.cli encode-batch a.wav b.wav ... out_dir [--cpu]
+    python -m sela_tpu_torch.cli decode-batch a.sela b.sela ... out_dir [--cpu]
+    python -m sela_tpu_torch.cli bench [--seconds S] [--cpu] [--detail PATH]
 
-`encode`, `decode` and `verify` run on the CUDA card unless --cpu is given
-(then the plain PyTorch versions of the kernels run). Profile flags:
+`encode`, `decode`, `verify`, `play`, the batch commands and `bench` run on
+the CUDA card unless --cpu is given (then the plain PyTorch versions of the
+kernels run); `info` and `tag` are host-only. Profile flags:
 --frame-size, --max-order, --rice-k-max, --no-mid-side, --exact-mid-side,
 --partition-residues (the v2 profile). `encode --tag KEY=VALUE`
 (repeatable) appends a tags trailer. The `selax` entry point of the JAX
@@ -156,19 +163,126 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_tag(args) -> int:
+    """Read or edit the metadata trailer without re-encoding audio."""
+    from .ref import container
+
+    with open(args.input, "rb") as f:
+        buf = f.read()
+    if args.set or args.clear:
+        tags = {} if args.clear else dict(container.read_tags(buf))
+        tags.update(_parse_tags(args.set or []))
+        out = container.replace_tags(buf, tags, fmt=args.format)
+        with open(args.output or args.input, "wb") as f:
+            f.write(out)
+        print(f"wrote {len(tags)} tag(s) to {args.output or args.input}")
+        return 0
+    tags = container.read_tags(buf)
+    if not tags:
+        print(f"{args.input}: no tags")
+    for k, v in tags.items():
+        print(f"{k} = {v if isinstance(v, str) else f'<{len(v)} bytes>'}")
+    return 0
+
+
+def cmd_play(args) -> int:
+    """Decode incrementally through the streaming player. The port has no
+    audio output: the stream is consumed at full speed and, with --wav-out,
+    written to a WAV file."""
+    from .codec.stream import StreamingPlayer
+    from .ref.wav import WavData, write_wav
+
+    with open(args.input, "rb") as f:
+        buf = f.read()
+    player = StreamingPlayer(buf, chunk_frames=args.chunk_frames,
+                             device=_device(args))
+    h = player.header
+    blocks = list(player)
+    n = sum(len(b) for b in blocks)
+    if args.wav_out:
+        pcm = (np.concatenate(blocks) if blocks
+               else np.zeros((0, h.channels), np.int32))
+        write_wav(args.wav_out, WavData(
+            h.sample_rate, h.bits_per_sample,
+            [pcm[:, c].copy() for c in range(h.channels)]))
+        print(f"no audio output; streamed {n / h.sample_rate:.2f}s of audio "
+              f"to {args.wav_out}")
+    else:
+        print(f"no audio output; stream-decoded {n / h.sample_rate:.2f}s "
+              f"({h.sample_rate} Hz, {h.channels} ch) - use --wav-out to save")
+    return 0
+
+
+def cmd_encode_batch(args) -> int:
+    import os
+
+    from .codec.corpus import encode_files
+    from .ref.wav import read_wav
+
+    wavs = [read_wav(p) for p in args.inputs]
+    t0 = time.perf_counter()
+    bufs = encode_files(wavs, chunk_frames=args.chunk_frames,
+                        device=_device(args))
+    dt = time.perf_counter() - t0
+    os.makedirs(args.out_dir, exist_ok=True)
+    raw = comp = 0
+    for p, w, buf in zip(args.inputs, wavs, bufs):
+        name = os.path.splitext(os.path.basename(p))[0] + ".sela"
+        with open(os.path.join(args.out_dir, name), "wb") as f:
+            f.write(buf)
+        raw += w.n_samples * w.n_channels * w.bits_per_sample // 8
+        comp += len(buf)
+    print(f"encoded {len(wavs)} files: {_human(raw)} -> {_human(comp)} "
+          f"(ratio {comp / raw:.3f}) in {dt:.2f}s [{_human(raw / dt)}/s]")
+    return 0
+
+
+def cmd_decode_batch(args) -> int:
+    import os
+
+    from .codec.corpus import decode_files
+    from .ref.wav import write_wav
+
+    bufs = []
+    for p in args.inputs:
+        with open(p, "rb") as f:
+            bufs.append(f.read())
+    t0 = time.perf_counter()
+    wavs = decode_files(bufs, chunk_frames=args.chunk_frames,
+                        device=_device(args))
+    dt = time.perf_counter() - t0
+    os.makedirs(args.out_dir, exist_ok=True)
+    raw = 0
+    for p, w in zip(args.inputs, wavs):
+        name = os.path.splitext(os.path.basename(p))[0] + ".wav"
+        write_wav(os.path.join(args.out_dir, name), w)
+        raw += w.n_samples * w.n_channels * w.bits_per_sample // 8
+    print(f"decoded {len(wavs)} files: {_human(raw)} in {dt:.2f}s "
+          f"[{_human(raw / dt)}/s]")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from .bench import run_bench
+
+    run_bench(args.seconds, _device(args), args.detail)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .codec.decoder import DEFAULT_CHUNK_FRAMES
+    from .codec.stream import DEFAULT_CHUNK_FRAMES as STREAM_CHUNK_FRAMES
 
     ap = argparse.ArgumentParser(prog="python -m sela_tpu_torch.cli",
                                  description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    def add(name, fn, help):
+    def add(name, fn, help, chunk_frames=DEFAULT_CHUNK_FRAMES):
         sp = sub.add_parser(name, help=help)
         sp.add_argument("--cpu", action="store_true",
                         help="run on the CPU (plain PyTorch versions of the "
                              "kernels)")
-        sp.add_argument("--chunk-frames", type=int, default=DEFAULT_CHUNK_FRAMES)
+        sp.add_argument("--chunk-frames", type=int, default=chunk_frames)
         sp.set_defaults(fn=fn)
         return sp
 
@@ -204,6 +318,33 @@ def build_parser() -> argparse.ArgumentParser:
     inf = sub.add_parser("info", help="container info")
     inf.add_argument("input")
     inf.set_defaults(fn=cmd_info)
+    tag = sub.add_parser("tag", help="read/edit metadata tags (no re-encode)")
+    tag.add_argument("input")
+    tag.add_argument("--set", action="append", metavar="KEY=VALUE",
+                     help="set a tag (repeatable)")
+    tag.add_argument("--clear", action="store_true",
+                     help="drop existing tags before applying --set")
+    tag.add_argument("--format", choices=("setg", "apev2"), default="setg",
+                     help="wire format for the written trailer: the compact "
+                          "SeTg block or a real APEv2 header+items+footer "
+                          "(reads auto-detect either)")
+    tag.add_argument("--output", default=None,
+                     help="write result here instead of in place")
+    tag.set_defaults(fn=cmd_tag)
+    ply = add("play", cmd_play, "stream-decode (to a WAV with --wav-out)",
+              chunk_frames=STREAM_CHUNK_FRAMES)
+    ply.add_argument("input")
+    ply.add_argument("--wav-out", default=None)
+    ben = add("bench", cmd_bench, "throughput benchmark (one JSON line)")
+    ben.add_argument("--seconds", type=float, default=60.0)
+    ben.add_argument("--detail", default=None, metavar="PATH",
+                     help="write the full detail here as JSON")
+    eb = add("encode-batch", cmd_encode_batch, "batch WAVs -> .sela dir")
+    eb.add_argument("inputs", nargs="+")
+    eb.add_argument("out_dir")
+    db = add("decode-batch", cmd_decode_batch, "batch .sela -> WAV dir")
+    db.add_argument("inputs", nargs="+")
+    db.add_argument("out_dir")
     return ap
 
 

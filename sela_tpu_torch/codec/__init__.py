@@ -1,1 +1,2 @@
-"""Host orchestration and the device decode step."""
+"""Host orchestration (whole files, corpus batches, streams) and the device
+encode and decode steps."""

@@ -62,12 +62,16 @@ def _validate_layout(sf: dict, F: int, C: int) -> None:
         raise ContainerError("inconsistent MID/SIDE subframe pairing")
 
 
-def _scan(buf: bytes, header) -> dict:
+def scan(buf: bytes, pos: int, num_frames: int, channels: int) -> tuple[dict, int]:
+    """Native scan of `num_frames` frames from byte `pos`, validated: any
+    structural fault, an LPC order over MAX_ORDER, a Rice k out of range or a
+    bad subframe layout raises ContainerError. Returns (fields, end): the
+    fields of bitio.scan_frames plus each block's word offsets (cw_offs,
+    rw_offs: [F C + 1]) and res_counts (values a residue block), and the
+    byte offset after the last frame."""
     try:
-        sf, end = bitio.scan_frames(
-            buf, container.HEADER_SIZE, header.num_frames, header.channels,
-            SYNC, FRAME_SIZE,
-        )
+        sf, end = bitio.scan_frames(buf, pos, num_frames, channels, SYNC,
+                                    FRAME_SIZE)
     except ValueError as e:
         raise ContainerError(str(e)) from None
     if np.any(sf["order"] > MAX_ORDER):
@@ -78,15 +82,64 @@ def _scan(buf: bytes, header) -> dict:
         (sf["k_res"] > RICE_K_ESCAPE) & (sf["k_res"] != RICE_PARTITION_MARKER)
     ):
         raise ContainerError("rice k out of range")
-    _validate_layout(sf, header.num_frames, header.channels)
-    container.parse_trailer(buf, end)  # metadata passthrough; junk raises
+    _validate_layout(sf, num_frames, channels)
+    return _index(sf, channels), end
+
+
+_DERIVED = ("res_counts", "cw_offs", "rw_offs")
+
+
+def _index(sf: dict, channels: int) -> dict:
+    """Add a scan's derived fields: values a residue block, block word
+    offsets."""
+    sf["res_counts"] = np.repeat(sf["n_samples"], channels)
+    sf["cw_offs"] = _exclusive_cumsum(sf["nw_coeff"])
+    sf["rw_offs"] = _exclusive_cumsum(sf["nw_res"])
     return sf
+
+
+def merge_scans(scans: list[dict], channels: int) -> dict:
+    """The scans of consecutive runs of frames (the files of a corpus group)
+    as one scan, so that one unpack covers them all."""
+    return _index({k: np.concatenate([sf[k] for sf in scans])
+                   for k in scans[0] if k not in _DERIVED}, channels)
 
 
 def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     out = np.zeros(len(a) + 1, np.int64)
     np.cumsum(a.astype(np.int64), out=out[1:])
     return out
+
+
+def unpack(sf: dict, lo: int, hi: int, channels: int):
+    """Host-unpack the subframes [lo, hi) of a scan (whole frames): their
+    dense rows in file order and where each goes. Returns (rows, qrows
+    [n, 32], erows [n, S] int32, fits16): row i belongs at (frame, channel)
+    row rows[i], counted from frame lo // channels; fits16 says every
+    residue fits int16. The coefficients are range-checked
+    (check_coeff_range) before any row is built."""
+    nwc = sf["nw_coeff"][lo:hi]
+    nwr = sf["nw_res"][lo:hi]
+    order = sf["order"][lo:hi]
+    res_counts = sf["res_counts"][lo:hi]
+    cw, rw = sf["cw_offs"], sf["rw_offs"]
+    qvals = bitio.unpack_blocks_flat(
+        sf["coeff_words"][cw[lo] : cw[hi]], _exclusive_cumsum(nwc)[:-1], nwc,
+        order, sf["k_coeff"][lo:hi])
+    frame_mod.check_coeff_range(qvals)
+    evals = bitio.unpack_blocks_flat(
+        sf["res_words"][rw[lo] : rw[hi]], _exclusive_cumsum(nwr)[:-1], nwr,
+        res_counts, sf["k_res"][lo:hi], sf["k_res4"][lo:hi])
+    n_sf = hi - lo
+    qrows = np.zeros((n_sf, MAX_ORDER), np.int32)
+    qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]] = qvals
+    erows = np.zeros((n_sf, FRAME_SIZE), np.int32)
+    erows[np.arange(FRAME_SIZE)[None, :] < res_counts[:, None]] = evals
+    rows = (np.repeat(np.arange(n_sf // channels, dtype=np.int64), channels)
+            * channels + sf["channel"][lo:hi])
+    fits16 = evals.size == 0 or (
+        evals.min() >= -(1 << 15) and evals.max() < (1 << 15))
+    return rows, qrows, erows, bool(fits16)
 
 
 class _Slot:
@@ -132,34 +185,15 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     S = FRAME_SIZE
 
     with m.stage("host_parse"):
-        sf = _scan(buf, header)
+        sf, end = scan(buf, container.HEADER_SIZE, F, C)
+        container.parse_trailer(buf, end)  # metadata passthrough; junk raises
     n_valid = sf["n_samples"]
-    res_counts = np.repeat(n_valid, C)  # residue count per subframe
-    cw_offs = _exclusive_cumsum(sf["nw_coeff"])
-    rw_offs = _exclusive_cumsum(sf["nw_res"])
     # int16 wire format halves the device->host PCM transfer for <=16-bit
     # streams (the host upcasts back to int32)
     out_dtype = torch.int16 if header.bits_per_sample <= 16 else torch.int32
     chunk_frames = min(chunk_frames, max(F, 1))
     slots = [_Slot(chunk_frames * C, (chunk_frames, C, S), out_dtype, cuda)
              for _ in range(min(PIPELINE, -(-F // chunk_frames)))]
-
-    def unpack_chunk(lo: int, hi: int):
-        """Unpack subframes [lo, hi) -> (qvals concat, evals concat)."""
-        nwc = sf["nw_coeff"][lo:hi]
-        nwr = sf["nw_res"][lo:hi]
-        qvals = bitio.unpack_blocks_flat(
-            sf["coeff_words"][cw_offs[lo] : cw_offs[hi]],
-            _exclusive_cumsum(nwc)[:-1], nwc, sf["order"][lo:hi],
-            sf["k_coeff"][lo:hi],
-        )
-        frame_mod.check_coeff_range(qvals)
-        evals = bitio.unpack_blocks_flat(
-            sf["res_words"][rw_offs[lo] : rw_offs[hi]],
-            _exclusive_cumsum(nwr)[:-1], nwr, res_counts[lo:hi],
-            sf["k_res"][lo:hi], sf["k_res4"][lo:hi],
-        )
-        return qvals, evals
 
     def dispatch(index: int, start: int):
         """Host-unpack one chunk and enqueue its device decode."""
@@ -169,24 +203,15 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
         lo, hi = start * C, stop * C
         n_sf = hi - lo
         with m.stage("host_unpack"):
-            qvals, evals = unpack_chunk(lo, hi)
-            # dense padded rows in file order, then permuted to (frame,
-            # channel) order via the channel bytes
-            order = sf["order"][lo:hi]
-            qrows = np.zeros((n_sf, MAX_ORDER), np.int32)
-            qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]] = qvals
-            erows = np.zeros((n_sf, S), np.int32)
-            erows[np.arange(S)[None, :] < res_counts[lo:hi][:, None]] = evals
-            rows = (np.repeat(np.arange(fcount, dtype=np.int64), C) * C
-                    + sf["channel"][lo:hi])
+            # dense padded rows in file order, permuted to (frame, channel)
+            # order via the channel bytes
+            rows, qrows, erows, fits16 = unpack(sf, lo, hi, C)
             # int16 wire format for the host->device residue copy when every
             # value fits (decode_step upcasts on the device)
-            fits16 = evals.size == 0 or (
-                evals.min() >= -(1 << 15) and evals.max() < (1 << 15))
             res_t = slot.residues(torch.int16 if fits16 else torch.int32)[:n_sf]
             res_t.numpy()[rows] = erows
             slot.qcoeffs.numpy()[rows] = qrows
-            slot.order.numpy()[rows] = order
+            slot.order.numpy()[rows] = sf["order"][lo:hi]
             slot.sftype.numpy()[rows] = sf["sftype"][lo:hi]
 
             def put(t: torch.Tensor, *shape):

@@ -58,35 +58,54 @@ def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def _pack_chunk(plan: np.ndarray, res: np.ndarray, nv: np.ndarray) -> bytes:
-    """Rice-pack and serialize the frames of one chunk (native library).
+def pack_frames(plan: np.ndarray, res: np.ndarray, nv: np.ndarray):
+    """Rice-pack every block of a run of frames, in one native call for the
+    residue blocks and one for the coefficient blocks.
 
     plan: [F, C, len(PLAN) + 32] int32 (PLAN columns, then qcoeffs);
-    res: [F, C, S] residues; nv: [F] valid samples a frame."""
+    res: [F, C, S] residues; nv: [F] valid samples a frame. Returns (cols,
+    coeff, resid) for serialize_frames: the PLAN columns as [F C] arrays, and
+    each block kind's (concatenated words, word count a block)."""
     F, C, S = res.shape
     cols = {k: np.ascontiguousarray(plan[:, :, i].reshape(-1))
             for i, k in enumerate(PLAN)}
     order = cols["order"]
     res_counts = np.repeat(nv, C)
     evals = res.reshape(F * C, S)[np.arange(S)[None, :] < res_counts[:, None]]
-    res_words, res_wc = bitio.pack_blocks_flat(
+    resid = bitio.pack_blocks_flat(
         evals, _exclusive_cumsum(res_counts), res_counts, cols["k_res"],
         cols["k_res4"])
     qrows = plan[:, :, len(PLAN):].reshape(F * C, MAX_ORDER)
     qvals = qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]]
-    coeff_words, coeff_wc = bitio.pack_blocks_flat(
+    coeff = bitio.pack_blocks_flat(
         qvals, _exclusive_cumsum(order), order, cols["k_coeff"])
     # the device planned every block's words from its bit counts (K5, K8,
-    # K6);
-    # the packer counts them again from the values: they must agree
-    if not (np.array_equal(res_wc, cols["nw_res"])
-            and np.array_equal(coeff_wc, cols["nw_coeff"])):
+    # K6); the packer counts them again from the values: they must agree
+    if not (np.array_equal(resid[1], cols["nw_res"])
+            and np.array_equal(coeff[1], cols["nw_coeff"])):
         raise RuntimeError("device Rice plan and host packer disagree on "
                            "block sizes")
+    return cols, coeff, resid
+
+
+def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int) -> bytes:
+    """Serialize frames [lo, hi) of a pack_frames result (native library);
+    nv: [F] valid samples a frame of the whole run."""
+    cols, coeff, resid = packed
+    C = len(cols["order"]) // len(nv)
+    s = slice(lo * C, hi * C)
+
+    def words(kind):   # the words and word counts of subframes [lo C, hi C)
+        w, wc = kind
+        offs = np.concatenate([[0], np.cumsum(wc)])
+        return w[offs[s.start] : offs[s.stop]], wc[s]
+
+    (cw, cwc), (rw, rwc) = words(coeff), words(resid)
     return bitio.emit_frames(
-        F, C, SYNC, nv, np.tile(np.arange(C, dtype=np.int32), F),
-        cols["sftype"], order, cols["k_coeff"], coeff_wc, cols["k_res"],
-        res_wc, coeff_words, res_words, sf_kr4=cols["k_res4"])
+        hi - lo, C, SYNC, nv[lo:hi], np.tile(np.arange(C, dtype=np.int32),
+                                             hi - lo),
+        cols["sftype"][s], cols["order"][s], cols["k_coeff"][s], cwc,
+        cols["k_res"][s], rwc, cw, rw, sf_kr4=cols["k_res4"][s])
 
 
 class _Slot:
@@ -184,8 +203,10 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
             if wire16 and not slot.fits16[:fcount].numpy().all():
                 res = res32.cpu().numpy()
         with m.stage("host_pack"):
-            frames.append(_pack_chunk(slot.plan[:fcount].numpy(), res,
-                                      n_valid[start:start + fcount]))
+            nv = n_valid[start:start + fcount]
+            frames.append(serialize_frames(
+                pack_frames(slot.plan[:fcount].numpy(), res, nv), nv, 0,
+                fcount))
         m.count("frames", fcount)
 
     inflight = []

@@ -1,0 +1,168 @@
+"""Streaming decode and a bounded packet queue: the playback data path.
+
+Counterpart of sela_tpu/codec/stream.py. `decode_stream` decodes a `.sela`
+buffer a chunk of frames at a time: the native scan and Rice unpack of the
+chunk on the host (codec/decoder.py::scan and ::unpack: the same
+validation, coefficient range check included, as the whole-file decode),
+then decode_step (K1, the IIR) on the device, then one block of PCM a frame.
+Host memory stays O(chunk), and the first block is ready after one chunk.
+`StreamingPlayer` runs decode_stream on a producer thread that fills a
+bounded `PacketQueue`; the caller consumes blocks in order.
+"""
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from ..format import FRAME_SIZE, MAX_ORDER
+from ..ref import container
+from ..utils.device import resolve_device
+from .decoder import scan, unpack
+from .pipeline import decode_step
+
+DEFAULT_CHUNK_FRAMES = 128  # latency/throughput tradeoff for playback
+
+
+def decode_stream(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
+                  device=None) -> Iterator[np.ndarray]:
+    """Yield PCM blocks [n, C] int32 in stream order, one a frame, decoding
+    `chunk_frames` frames at a time on `device` (default: the CUDA card).
+
+    The blocks, concatenated, equal decode_sela(buf)'s channels. Damage
+    raises ContainerError when the chunk that holds it is reached: every
+    block yielded before it is valid. The trailer is parsed after the last
+    frame. device="cpu" runs the plain PyTorch versions of the kernels; with
+    no device named and no CUDA available this raises.
+    """
+    if chunk_frames < 1:
+        raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+    dev = resolve_device(device)
+    header = container.parse_header(buf)
+    C, F, S = header.channels, header.num_frames, FRAME_SIZE
+    out_dtype = torch.int16 if header.bits_per_sample <= 16 else torch.int32
+    pos = container.HEADER_SIZE
+    for start in range(0, F, chunk_frames):
+        n = min(chunk_frames, F - start)
+        sf, pos = scan(buf, pos, n, C)
+        rows, qrows, erows, fits16 = unpack(sf, 0, n * C, C)
+        res = np.zeros((n * C, S), np.int16 if fits16 else np.int32)
+        qcoeffs = np.zeros((n * C, MAX_ORDER), np.int32)
+        order = np.zeros(n * C, np.int32)
+        sftype = np.zeros(n * C, np.int32)
+        res[rows], qcoeffs[rows] = erows, qrows
+        order[rows], sftype[rows] = sf["order"], sf["sftype"]
+
+        def put(a: np.ndarray, *shape):
+            return torch.from_numpy(a).view(*shape).to(dev)
+
+        x = decode_step(put(res, n, C, S), put(qcoeffs, n, C, MAX_ORDER),
+                        put(order, n, C), put(sftype, n, C),
+                        out_dtype=out_dtype).cpu().numpy()
+        for f, nv in enumerate(sf["n_samples"]):
+            yield x[f, :, :nv].T.astype(np.int32)
+    container.parse_trailer(buf, pos)  # metadata passthrough; junk raises
+
+
+class PacketQueue:
+    """Bounded, ordered, thread-safe PCM block queue.
+
+    put() blocks when full (backpressure on the decode producer), get()
+    blocks until a block or end-of-stream arrives. close() signals EOS;
+    abort() drains and unblocks everyone (player teardown).
+    """
+
+    def __init__(self, max_blocks: int = 32):
+        self._q: deque = deque()
+        self._max = max_blocks
+        self._lock = threading.Lock()
+        self._not_full = threading.Condition(self._lock)
+        self._not_empty = threading.Condition(self._lock)
+        self._closed = False
+        self._aborted = False
+
+    def put(self, block: np.ndarray) -> bool:
+        """Queue a block; False when the queue was aborted."""
+        with self._not_full:
+            while len(self._q) >= self._max and not self._aborted:
+                self._not_full.wait()
+            if self._aborted:
+                return False
+            self._q.append(block)
+            self._not_empty.notify()
+            return True
+
+    def get(self):
+        """Next block, or None at end-of-stream/abort."""
+        with self._not_empty:
+            while not self._q and not self._closed and not self._aborted:
+                self._not_empty.wait()
+            if self._q and not self._aborted:
+                block = self._q.popleft()
+                self._not_full.notify()
+                return block
+            return None
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._not_empty.notify_all()
+
+    def abort(self) -> None:
+        with self._lock:
+            self._aborted = True
+            self._q.clear()
+            self._not_empty.notify_all()
+            self._not_full.notify_all()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+
+class StreamingPlayer:
+    """Producer thread: decode_stream -> PacketQueue. Consumer: the caller.
+
+    Use: `for block in StreamingPlayer(buf): ...`. The device is resolved
+    here, on the caller's thread, and handed to the producer, which runs the
+    device work on it whatever that thread's current device is. An error in
+    the producer ends the stream and is raised to the consumer after the
+    blocks before it.
+    """
+
+    def __init__(self, buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
+                 max_blocks: int = 32, device=None):
+        self.header = container.parse_header(buf)
+        self.queue = PacketQueue(max_blocks)
+        self.error: Exception | None = None
+        self._thread = threading.Thread(
+            target=self._produce,
+            args=(buf, chunk_frames, resolve_device(device)), daemon=True)
+        self._thread.start()
+
+    def _produce(self, buf: bytes, chunk_frames: int, device) -> None:
+        try:
+            for block in decode_stream(buf, chunk_frames, device=device):
+                if not self.queue.put(block):
+                    return  # aborted
+        except Exception as e:  # surfaced to the consumer loop
+            self.error = e
+        finally:
+            self.queue.close()
+
+    def __iter__(self):
+        while True:
+            block = self.queue.get()
+            if block is None:
+                break
+            yield block
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+
+    def stop(self) -> None:
+        self.queue.abort()
+        self._thread.join()

@@ -2,7 +2,8 @@
 
 The port's copy of sela_tpu/native/bitio.py: the single-pass frame scan
 and the threaded block unpacker (decode), the threaded block packer and the
-frame emitter (encode). The library is built with g++ from this directory's
+frame emitter (encode), and the block-list API over the packer and unpacker
+(utils/bitpack.py). The library is built with g++ from this directory's
 bitio.cpp at first use into the port's build directory (utils/build.py); a
 failed build raises — the codec has no numpy packer to switch to.
 """
@@ -161,6 +162,59 @@ def unpack_blocks_flat(words: np.ndarray, word_offs: np.ndarray,
     return out
 
 
+def _split_ks(klist) -> tuple[np.ndarray, np.ndarray]:
+    """Per-block k entries -> (ks, ks4) int32: an int is a plain block's k; a
+    sequence is a partitioned block's sub-ks, which becomes
+    RICE_PARTITION_MARKER in ks and the sub-ks byte-packed in ks4."""
+    ks = np.zeros(len(klist), np.int32)
+    ks4 = np.zeros(len(klist), np.int32)
+    for i, k in enumerate(klist):
+        if isinstance(k, (list, tuple)) or np.ndim(k) > 0:
+            ks[i] = RICE_PARTITION_MARKER
+            ks4[i] = sum(int(sk) << (8 * q) for q, sk in enumerate(k))
+        else:
+            ks[i] = int(k)
+    return ks, ks4
+
+
+def _split(flat: np.ndarray, counts) -> list[np.ndarray]:
+    """Concatenated blocks -> one copy a block."""
+    ends = np.cumsum(np.asarray(counts, np.int64))
+    return [flat[e - c : e].copy() for e, c in zip(ends, counts)]
+
+
+def pack_blocks(blocks: list[tuple[np.ndarray, object]]) -> list[np.ndarray]:
+    """List API over pack_blocks_flat: [(int32 values, k)] -> one uint32 word
+    array a block. k is an int (a plain block) or a sequence of sub-ks (a
+    partitioned block, FORMAT.md §Partitioned residues)."""
+    if not blocks:
+        return []
+    counts = np.array([len(v) for v, _ in blocks], np.int32)
+    ks, ks4 = _split_ks([k for _, k in blocks])
+    offs = np.zeros(len(blocks), np.int64)
+    np.cumsum(counts[:-1].astype(np.int64), out=offs[1:])
+    values = np.concatenate([np.asarray(v, np.int32).reshape(-1)
+                             for v, _ in blocks])
+    words, word_counts = pack_blocks_flat(values, offs, counts, ks, ks4)
+    return _split(words, word_counts)
+
+
+def unpack_blocks(blocks: list[tuple[np.ndarray, int, object]]) -> list[np.ndarray]:
+    """List API over unpack_blocks_flat: [(uint32 words, count, k)] -> one
+    int32 value array a block; k as in pack_blocks."""
+    if not blocks:
+        return []
+    word_counts = np.array([len(w) for w, _, _ in blocks], np.int32)
+    counts = np.array([c for _, c, _ in blocks], np.int32)
+    ks, ks4 = _split_ks([k for _, _, k in blocks])
+    word_offs = np.zeros(len(blocks), np.int64)
+    np.cumsum(word_counts[:-1].astype(np.int64), out=word_offs[1:])
+    words = np.concatenate([np.asarray(w, np.uint32).reshape(-1)
+                            for w, _, _ in blocks])
+    return _split(unpack_blocks_flat(words, word_offs, word_counts, counts, ks,
+                                     ks4), counts)
+
+
 def scan_frames(buf: bytes, pos: int, num_frames: int, channels: int,
                 sync: int, max_samples: int):
     """Single-pass native container scan (FORMAT.md frame layout).
@@ -178,9 +232,12 @@ def scan_frames(buf: bytes, pos: int, num_frames: int, channels: int,
     sf = {k: np.zeros(F * C, np.int32)
           for k in ("channel", "sftype", "order", "k_coeff", "nw_coeff",
                     "k_res", "k_res4", "nw_res")}
+    # a frame's words come from its bytes, so the rest of the buffer bounds
+    # them; np.empty leaves the pages the scan does not write untouched, so
+    # a scan of a few frames of a long file costs its frames, not the file
     cap = max((len(buf) - pos) // 4 + 1, 1)
-    coeff_words = np.zeros(cap, np.uint32)
-    res_words = np.zeros(cap, np.uint32)
+    coeff_words = np.empty(cap, np.uint32)
+    res_words = np.empty(cap, np.uint32)
     ct = ctypes.c_int64(0)
     rt = ctypes.c_int64(0)
     end = lib.sela_scan_frames(

@@ -469,3 +469,157 @@ def test_v2_encode_on_card_gives_input_back(dev):
     for out in (decode_sela(buf, device="cuda"), ref_codec.decode_sela(buf)):
         for a, b in zip(out.channels, chans):
             np.testing.assert_array_equal(a, b)
+
+
+def _pack_rows(rng, B: int, N: int, k):
+    """[B, N] int32 rows for the Rice packer at parameter k (an int, or
+    None: each row at its optimal k): values within a few bits of k's range
+    (full-scale int32 for k = 30), n_valid 0, 1, N and between."""
+    from sela_tpu_torch.ref import rice as ref_rice
+
+    if k is None:
+        scale = 10.0 ** rng.uniform(0, 4, (B, 1))
+        vals = np.round(rng.laplace(0, 1, (B, N)) * scale).astype(np.int32)
+    else:
+        amp = 1 << min(k + 3, 31)
+        vals = rng.integers(-amp, amp, (B, N), dtype=np.int64).astype(np.int32)
+    nv = rng.integers(0, N + 1, B).astype(np.int32)
+    nv[::3], nv[1::5], nv[2::7] = N, 0, 1
+    if k is None:
+        ks = np.array([ref_rice.optimal_k(ref_rice.zigzag(vals[b, : nv[b]]))
+                       for b in range(B)], np.int32)
+        ks = np.minimum(ks, 30)   # an escape row is packed at k = 30 here
+    else:
+        ks = np.full(B, k, np.int32)
+    return vals, ks, nv
+
+
+PACK_KS = [None, 0, 5, 13, 30]
+
+
+@pytest.mark.parametrize("B,N", GRID[:6] + [(1024, 1), (1024, 100),
+                                            (1024, 2048)],
+                         ids=_ids(GRID[:6] + [(1024, 1), (1024, 100),
+                                              (1024, 2048)]))
+@pytest.mark.parametrize("k", PACK_KS, ids=[f"k{k}" for k in PACK_KS])
+def test_pack_kernel_matches_plain(dev, B, N, k):
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.native import bitio
+    from sela_tpu_torch.ops.pack import pack_blocks
+
+    rng = np.random.default_rng(B * 11 + N + (k or 31))
+    vals, ks, nv = _pack_rows(rng, B, N, k)
+    cpu = [torch.from_numpy(a) for a in (vals, ks, nv)]
+    w_cpu, nw_cpu = pack_blocks(*cpu, 8)
+    max_words = int(nw_cpu.max()) + 3        # every row fits, 3 spare words
+    want = pack_blocks(*cpu, max_words)
+    before = k_pack.launches
+    got = pack_blocks(*[t.to(dev) for t in cpu], max_words)
+    assert k_pack.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    # and the host packer's words, block by block
+    words, wc = bitio.pack_blocks_flat(vals[np.arange(N)[None, :] < nv[:, None]],
+                                       np.concatenate([[0], np.cumsum(nv)[:-1]]),
+                                       nv, ks)
+    assert np.array_equal(wc, want[1].numpy())
+    dense = got[0].cpu().numpy().view(np.uint32)
+    cols = np.arange(max_words)[None, :] < wc[:, None]
+    assert np.array_equal(dense[cols], words)
+
+
+def test_pack_kernel_rows_over_max_words_and_global_buffer(dev):
+    """Rows whose words exceed max_words keep their first max_words words
+    and report their true count, with the word buffer in shared memory
+    (max_words <= 12,000) and in the output row (beyond); k = 30 patterns
+    straddle words."""
+    from sela_tpu_torch.ops.pack import pack_blocks
+
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-(1 << 8), 1 << 8, (77, 2048)).astype(np.int32)
+    vals[5] = np.resize(np.array([(1 << 30) - 1, -(1 << 30), 1, 0, -1, 7],
+                                 np.int32), 2048)
+    ks = np.zeros(77, np.int32)
+    ks[5], ks[6] = 30, 3
+    nv = np.full(77, 2048, np.int32)
+    cpu = [torch.from_numpy(a) for a in (vals, ks, nv)]
+    full = int(pack_blocks(*cpu, 8)[1].max())
+    assert full > 12000
+    for max_words in (100, 12000, 12001, full):
+        want = pack_blocks(*cpu, max_words)
+        got = pack_blocks(*[t.to(dev) for t in cpu], max_words)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]), max_words
+        assert torch.equal(got[1].cpu(), want[1]), max_words
+
+
+def test_pack_wrapper_refuses_bad_inputs_on_card(dev):
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.ops.pack import pack_blocks
+
+    v = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    k = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = k_pack.launches
+    for bad_k in (31, 32, -1):
+        with pytest.raises(ValueError, match="plain blocks"):
+            pack_blocks(v, torch.full_like(k, bad_k), k, 8)
+    with pytest.raises(TypeError):
+        pack_blocks(v.long(), k, k, 8)
+    with pytest.raises(ValueError):      # rows over 2,048 values
+        pack_blocks(torch.zeros((4, 4096), dtype=torch.int32, device=dev),
+                    k, k, 8)
+    with pytest.raises(ValueError):
+        pack_blocks(v, k.cpu(), k, 8)
+    with pytest.raises(ValueError):
+        pack_blocks(torch.zeros((64, 4), dtype=torch.int32, device=dev).t(),
+                    k, k, 8)
+    with pytest.raises(ValueError):
+        pack_blocks(v, k, k, 0)
+    assert k_pack.launches == before
+
+
+def test_corpus_round_trip_on_card(dev):
+    from sela_tpu_torch.codec.corpus import decode_files, encode_files
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(9)
+    wavs = []
+    for i, (nch, bits) in enumerate([(1, 16), (2, 16), (2, 24), (3, 16),
+                                     (2, 32)]):
+        n = int(rng.integers(500, 7000))
+        rows = _audio(rng, nch, n, bits=bits)
+        wavs.append(WavData(44100, bits, list(rows)))
+    for name in k_enc.launches:
+        k_enc.launches[name] = 0
+    k_lpc.launches = k_iir.launches = 0
+    bufs = encode_files(wavs, chunk_frames=3, device="cuda")
+    outs = decode_files(bufs, chunk_frames=3, device="cuda")
+    assert all(v > 0 for k, v in k_enc.launches.items()
+               if k != "quarter_counts"), k_enc.launches
+    assert k_lpc.launches > 0 and k_iir.launches > 0
+    for w, buf, out in zip(wavs, bufs, outs):
+        for got in (out, ref_codec.decode_sela(buf)):
+            assert got.bits_per_sample == w.bits_per_sample
+            for a, b in zip(got.channels, w.channels):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_stream_decode_on_card(dev):
+    from sela_tpu_torch.codec.decoder import decode_sela
+    from sela_tpu_torch.codec.stream import StreamingPlayer, decode_stream
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(6)
+    rows = _audio(rng, 2, 2048 * 5 + 17)
+    buf = ref_codec.encode_wav(WavData(44100, 16, list(rows)))
+    want = decode_sela(buf, device="cuda")
+    blocks = list(decode_stream(buf, chunk_frames=2, device="cuda"))
+    assert len(blocks) == 6
+    pcm = np.concatenate(blocks)
+    played = np.concatenate(list(StreamingPlayer(buf, chunk_frames=4)))
+    for c in range(2):
+        np.testing.assert_array_equal(pcm[:, c], want.channels[c])
+        np.testing.assert_array_equal(played[:, c], rows[c])

@@ -39,7 +39,9 @@ def _forbidden(name: str) -> bool:
 
 ENCODE_MODULES = ("config.py", "codec/encoder.py", "codec/pipeline.py",
                   "kernels/encode.py", "ops/analysis.py", "ops/filters.py",
-                  "ops/rice.py", "native/bitio.py", "cli.py")
+                  "ops/rice.py", "native/bitio.py", "cli.py", "bench.py",
+                  "codec/corpus.py", "codec/stream.py", "kernels/pack.py",
+                  "ops/pack.py", "utils/bitpack.py")
 
 
 def test_port_sources_import_no_jax():
@@ -109,6 +111,50 @@ def test_encode_without_device_raises_on_cuda_less_host():
     with pytest.raises(RuntimeError, match="CUDA"):
         encode_wav(w, device="cuda")
     assert encode_wav(w, device="cpu")[:4] == b"SeLa"
+
+
+def _no_cuda_clip():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is the card")
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(0)
+    return WavData(44100, 16, [rng.integers(-900, 900, 500).astype(np.int32)])
+
+
+def test_corpus_without_device_raises_on_cuda_less_host():
+    from sela_tpu_torch.codec.corpus import decode_files, encode_files
+
+    w = _no_cuda_clip()
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            encode_files([w], device=device)
+    bufs = encode_files([w], device="cpu")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            decode_files(bufs, device=device)
+    assert decode_files(bufs, device="cpu")[0].n_samples == 500
+
+
+def test_stream_without_device_raises_on_cuda_less_host():
+    from sela_tpu_torch.codec.stream import StreamingPlayer, decode_stream
+    from sela_tpu_torch.ref import codec as ref_codec
+
+    buf = ref_codec.encode_wav(_no_cuda_clip())
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            next(decode_stream(buf, device=device))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            StreamingPlayer(buf, device=device)
+    assert len(next(decode_stream(buf, device="cpu"))) == 500
+
+
+def test_bench_without_device_raises_on_cuda_less_host():
+    from sela_tpu_torch.bench import run_bench
+
+    _no_cuda_clip()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_bench(0.01)
 
 
 def test_chip_smoke_fails_without_cuda():
