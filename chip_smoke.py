@@ -118,9 +118,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
              packer A/B, the packer launched) at the CD chunk's [1,024,
              2,048], and `bench.bench_device_pipeline` at 8 chunks of 512
              frames;
-12. each kernel's share of its bound, the `kernels` JSON line, then the
-   card's name and power limit, then the last line
-   `{"ok": true, "device": {...}}`.
+12. the parallel paths — (a) a 20-minute 16-bit/44.1 kHz stereo track
+             tiled from `cd_180s` (25,840 frames, 211.68 MB of PCM); (b)
+             `parallel.mesh.dryrun_multichip` over every visible card at full
+             width (the unsharded integer render of the sharded v2 planning
+             equals it; the round trip is bit-exact), the v2 encode step and
+             the v1 codec step over 1 shard and over 4 shards of cuda:0
+             (identical planning and PCM, every frame exact), and the 32-bit
+             codec step of `int32_10s` over 4 shards, padded (K7): each
+             step's device ms (CUDA events) and PCM GB/s, K1, the IIR,
+             K3-K6 and K8 launched; (c) 1, 2 and 4 `shard_worker` processes
+             on the card at once, joined over gloo on 127.0.0.1: each merge's
+             sha256 equals one `encode_wav` of the track in this process, the
+             4-rank merge decodes to the input; per-rank `wall_s` and process
+             walls, balance, aggregate MB/s and scaling efficiency against
+             the 1-rank run; (d) one of two ranks killed after joining: the
+             other exits 0, `missing_shards` names the dead one, which re-run
+             alone gives the same sha256;
+13. each kernel's share of its bound, the `kernels` JSON line (with each
+   kernel's launches on phase 12's sharded path), then the card's name
+   and power limit, then the last line `{"ok": true, "device": {...}}`.
 
 Comparisons of the normative integer kernels are exact (max_abs_err 0); K3's
 tolerance and K4's rule are stated in phase 6. Kernel times are CUDA-event
@@ -1264,6 +1281,13 @@ def log_profile(torch, fn, wall: float) -> None:
 ENCODE_KERNELS = ("lpc", "autocorr", "levinson", "fir_rice", "ksel")
 
 
+def reset_launches(k_lpc, k_iir, k_enc) -> None:
+    """Every launch counter of the encode and decode kernels to 0."""
+    k_lpc.launches = k_iir.launches = 0
+    for kernel in k_enc.launches:
+        k_enc.launches[kernel] = 0
+
+
 def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                  container, k_lpc, k_iir, k_enc, name, chans, rate, bits,
                  oracle_bytes=None, max_vs_oracle=None, oracle_decode=False,
@@ -1280,9 +1304,7 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
     if warm:   # first use of pinned buffers and the allocator, not counted
         encoder.encode_wav(w, device="cuda", profile=profile)
     m = Metrics()
-    k_lpc.launches = k_iir.launches = 0
-    for kernel in k_enc.launches:
-        k_enc.launches[kernel] = 0
+    reset_launches(k_lpc, k_iir, k_enc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     buf = encoder.encode_wav(w, device="cuda", metrics=m, profile=profile)
@@ -1485,9 +1507,7 @@ def phase_slice(torch, bench, decoder, stream, WavData, k_lpc, k_iir, k_enc,
         f"{e2e['decode_s']:.4f} s (single walls of phases 8 and 7: "
         f"{enc_main['wall_s']:.4f} and {dec_main['wall_s']:.4f} s)")
 
-    k_lpc.launches = k_iir.launches = 0
-    for kernel in k_enc.launches:
-        k_enc.launches[kernel] = 0
+    reset_launches(k_lpc, k_iir, k_enc)
     batch = bench.bench_batch64(iters=3, device="cuda")
     launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
     log(f"batch64: encode {batch['encode_s']:.4f} s, decode "
@@ -1538,6 +1558,298 @@ def phase_slice(torch, bench, decoder, stream, WavData, k_lpc, k_iir, k_enc,
                 stream_first_ms=t_first * 1e3, stream_total_s=t_total,
                 host_pack=host, device_pack=dp, device_pack_launches=dp_launches,
                 pipeline=pipe)
+
+
+LONG_S = 1200.0   # phase 12's track: 20 minutes, 25,840 frames
+# the `kernels` line's names -> their launch counters on phase 12's path
+SHARDED_NAMES = {"lpc_from_q": "lpc", "iir_synthesize": "iir",
+                 "autocorr": "autocorr", "levinson": "levinson",
+                 "fir_rice": "fir_rice", "ksel": "ksel",
+                 "quarter_counts": "quarter_counts"}
+
+
+def step_ms(torch, fn):
+    """A timed call of fn, which must not wait on the device, after an
+    untimed one (the first launch of a kernel loads its module, which can
+    wait on the device): (its result, device ms between two CUDA events
+    queued behind a ~100 ms device-side sleep that covers the host's
+    enqueue, host ms of the enqueue). An enqueue past the sleep would put
+    host gaps into the device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return out, start.elapsed_time(end), enqueue_ms
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """Shard workers (`python -m sela_tpu_torch.parallel.shard_worker`) on
+    the card as processes of this script: each is killed on exit if still
+    running."""
+
+    def __init__(self):
+        self.procs = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for _, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+
+    def spawn(self, wav: str, out_dir: str, rank: int, n: int,
+              port: int | None, extra=()):
+        """One rank: in a gloo group of n on 127.0.0.1:port, or alone with
+        --rank (port None)."""
+        args = (["--rank", str(rank), "--n-hosts", str(n)]
+                if port is None else [])
+        env = dict(os.environ, LOCAL_RANK=str(rank))
+        if port is not None:
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(n), RANK=str(rank))
+        p = subprocess.Popen(
+            [sys.executable, "-m", "sela_tpu_torch.parallel.shard_worker",
+             wav, out_dir, *args, *extra], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.procs.append((time.perf_counter(), p))
+        return p
+
+    def finish(self, procs: list, timeout: float = 600.0) -> list[dict]:
+        """Wait for procs; each one's JSON line with its process wall
+        (spawn to exit) added as process_s."""
+        t0 = {id(p): t for t, p in self.procs}
+        ends = {}
+        deadline = time.perf_counter() + timeout
+        while len(ends) < len(procs):
+            for p in procs:
+                if id(p) not in ends and p.poll() is not None:
+                    ends[id(p)] = time.perf_counter()
+            check(time.perf_counter() < deadline, "a shard worker hung")
+            time.sleep(0.005)
+        lines = []
+        for p in procs:
+            out, err = p.communicate()
+            check(p.returncode == 0,
+                  f"shard worker exited {p.returncode}: {err[-2000:]}")
+            line = json.loads(out.strip().splitlines()[-1])
+            line["process_s"] = ends[id(p)] - t0[id(p)]
+            lines.append(line)
+        return lines
+
+
+def wait_joined(p, timeout: float = 300.0) -> None:
+    """Read a worker's stderr on a thread until it has joined its group."""
+    import queue
+    import threading
+
+    lines = queue.Queue()
+
+    def drain():
+        for line in p.stderr:
+            lines.put(line)
+        lines.put("")
+
+    threading.Thread(target=drain, daemon=True).start()
+    deadline = time.perf_counter() + timeout
+    while True:
+        line = lines.get(timeout=max(deadline - time.perf_counter(), 0.01))
+        if line.startswith("joined rank"):
+            return
+        check(bool(line), "the worker to kill exited before joining")
+
+
+def phase_parallel(torch, encoder, decoder, WavData, Metrics, k_lpc, k_iir,
+                   k_enc, cd, c32) -> dict:
+    """Phase 12: the frame-axis sharded steps and the multi-process shard
+    encode on a track of LONG_S seconds tiled from `cd`."""
+    import hashlib
+    import tempfile
+
+    from sela_tpu_torch.parallel import mesh, multihost
+    from sela_tpu_torch.ref.wav import write_wav
+
+    log("== phase 12: the parallel paths (sharded steps, shard encode "
+        "across processes)")
+    n = int(round(LONG_S * 44100))
+    long = [np.tile(c, -(-n // len(c)))[:n] for c in cd]
+    w = WavData(44100, 16, long)
+    pcm_bytes = n * 2 * 2
+    x, nv = encoder.frame_batches(long, dtype=np.int16)
+    x = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    nv = torch.from_numpy(nv).cuda()
+    F = x.shape[0]
+    log(f"(a) long track: {LONG_S:.0f} s of 16-bit/44.1 kHz stereo tiled "
+        f"from cd_180s, {n} samples, {F} frames, {pcm_bytes / 1e6:.2f} MB of "
+        f"PCM; {F * 4} candidate rows of {FRAME} samples "
+        f"({F * 4 * FRAME / 1e6:.1f} M int32 elements)")
+
+    # (b) the sharded steps, every launch counted
+    reset_launches(k_lpc, k_iir, k_enc)
+    torch.cuda.reset_peak_memory_stats()
+    all_cards = mesh.data_mesh()
+    t0 = time.perf_counter()
+    enc_dry = mesh.dryrun_multichip(all_cards, x, nv)
+    log(f"(b) dryrun_multichip over {all_cards.size} device(s) "
+        f"{[str(d) for d in all_cards.devices]}: the unsharded integer render "
+        f"of the sharded planning equals it on {', '.join(mesh.RENDER_CHECKS)}"
+        f"; the round trip is bit-exact ({time.perf_counter() - t0:.2f} s "
+        f"host wall, first use)")
+    four = mesh.data_mesh(devices=[all_cards.devices[0]] * 4)
+    steps = {}
+
+    def timed(label, fn, nbytes):
+        out, ms, enqueue_ms = step_ms(torch, fn)
+        steps[label] = dict(ms=ms, gb_per_s=nbytes / ms / 1e6,
+                            enqueue_ms=enqueue_ms)
+        gaps = "; past the sleep: host gaps" if enqueue_ms > 90 else ""
+        log(f"  {label}: {ms:.3f} ms device, {nbytes / ms / 1e6:.2f} GB/s "
+            f"of PCM (host enqueue {enqueue_ms:.2f} ms{gaps})")
+        return out
+
+    enc1 = timed("encode v2, 1 shard",
+                 lambda: mesh.sharded_encode_step(all_cards, partition=4)(x, nv),
+                 pcm_bytes)
+    enc4 = timed("encode v2, 4 shards",
+                 lambda: mesh.sharded_encode_step(four, partition=4)(x, nv),
+                 pcm_bytes)
+    same = [k for k in enc1 if torch.equal(enc1[k], enc4[k])
+            and torch.equal(enc1[k], enc_dry[k])]
+    log(f"  4-way and 1-way planning identical on {len(same)}/{len(enc1)} "
+        f"keys (and to the dry run's)")
+    check(len(same) == len(enc1), "4-way sharded planning differs from 1-way "
+          f"on {sorted(set(enc1) - set(same))}")
+    pcm1, exact1 = timed("codec v1, 1 shard",
+                         lambda: mesh.sharded_codec_step(all_cards)(x, nv),
+                         pcm_bytes)
+    pcm4, exact4 = timed("codec v1, 4 shards",
+                         lambda: mesh.sharded_codec_step(four)(x, nv),
+                         pcm_bytes)
+    check(bool(exact1.all()) and bool(exact4.all())
+          and torch.equal(pcm1, pcm4),
+          "a sharded codec step is not bit-exact or the shardings differ")
+    del enc1, enc4, enc_dry, pcm1, pcm4
+    x32, nv32 = encoder.frame_batches(c32, dtype=np.int32)
+    x32 = torch.from_numpy(np.ascontiguousarray(x32)).cuda()
+    nv32 = torch.from_numpy(nv32).cuda()
+    _, exact32 = timed(f"codec 32-bit (int32_10s, {x32.shape[0]} frames, "
+                       f"allow_ms=False), 4 shards, padded by "
+                       f"{(-x32.shape[0]) % 4}",
+                       lambda: mesh.sharded_codec_step(four, allow_ms=False)(
+                           x32, nv32), x32.numel() * 4)
+    check(bool(exact32.all()), "the 32-bit sharded codec step is not exact")
+    sharded = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  sharded launches {sharded}; peak device memory {peak:.2f} GiB")
+    check(all(v > 0 for v in sharded.values()),
+          f"a kernel did not run on the sharded path {sharded}")
+    del x, nv, x32, nv32
+
+    # (c) shard encode across processes, (d) kill and recover
+    cores = len(os.sched_getaffinity(0))
+    log(f"(c) shard encode across processes: {cores} host cores; the ranks "
+        f"share one card and these cores, so this measures how far the "
+        f"host-bound encode scales on one machine, not multi-host scaling")
+    with tempfile.TemporaryDirectory() as tmp, Ranks() as ranks:
+        wav = os.path.join(tmp, "long.wav")
+        write_wav(wav, w)
+        walls = []
+        for _ in range(2):   # this process's first encode of the size, again
+            m = Metrics()
+            t0 = time.perf_counter()
+            single = encoder.encode_wav(w, device="cuda", metrics=m)
+            walls.append(time.perf_counter() - t0)
+            log(f"  encode_wav of the track in this process: {walls[-1]:.3f} s "
+                f"= {pcm_bytes / walls[-1] / 1e6:.1f} PCM MB/s; stages "
+                f"{ {k: round(v, 3) for k, v in m.stage_s.items()} }")
+        single_s = walls[0]
+        digest = hashlib.sha256(single).hexdigest()
+        log(f"  {len(single)} bytes, sha256 {digest[:16]}")
+        runs = {}
+        for n_ranks in (1, 2, 4):
+            out = os.path.join(tmp, f"shards{n_ranks}")
+            port = free_port()
+            lines = ranks.finish([ranks.spawn(wav, out, r, n_ranks, port)
+                                  for r in range(n_ranks)])
+            merged = os.path.join(tmp, f"merged{n_ranks}.sela")
+            info = multihost.merge_shards(out, n_ranks, merged)
+            with open(merged, "rb") as f:
+                buf = f.read()
+            ok = hashlib.sha256(buf).hexdigest() == digest
+            manifests = [json.load(open(multihost._manifest_path(out, r)))
+                         for r in range(n_ranks)]
+            runs[n_ranks] = dict(lines=lines, info=info, manifests=manifests)
+            t1 = runs[1]["info"]["wall_max_s"]
+            p1 = max(d["process_s"] for d in runs[1]["lines"])
+            eff = multihost.scaling_efficiency(t1, manifests)
+            p_eff = p1 / (n_ranks * max(d["process_s"] for d in lines))
+            runs[n_ranks].update(efficiency=eff, process_efficiency=p_eff)
+            log(f"  {n_ranks} rank(s): wall_s "
+                f"{[round(d['wall_s'], 4) for d in lines]} (first use before "
+                f"it {[round(d['first_use_s'], 3) for d in lines]}), process walls "
+                f"{[round(d['process_s'], 3) for d in lines]} s; balance "
+                f"{info['balance']}, aggregate {info['aggregate_mb_per_s']} "
+                f"MB/s, scaling efficiency {eff:.4f} (process walls "
+                f"{p_eff:.4f}); merged sha256 equals the single encode's: "
+                f"{ok}")
+            for d in lines:
+                log(f"    rank {d['rank']}: stages {d['stages']}; launches "
+                    f"{d['launches']}")
+            check(ok, f"the {n_ranks}-rank merge differs from one encode_wav")
+            check(all(d["launches"][k] > 0 for d in lines
+                      for k in ENCODE_KERNELS),
+                  f"a shard worker did not run the encode kernels {lines}")
+            if n_ranks == 4:
+                t0 = time.perf_counter()
+                back = decoder.decode_sela(buf, device="cuda")
+                same = all(np.array_equal(a, b)
+                           for a, b in zip(back.channels, long))
+                log(f"  decode_sela of the 4-rank merge gives the input: "
+                    f"{same} ({time.perf_counter() - t0:.3f} s)")
+                check(same, "the merged stream does not decode to the input")
+
+        out = os.path.join(tmp, "killed")
+        port = free_port()
+        p0 = ranks.spawn(wav, out, 0, 2, port)
+        p1 = ranks.spawn(wav, out, 1, 2, port, extra=("--slow-ms", "120000"))
+        wait_joined(p1)
+        p1.kill()
+        p1.wait()
+        ranks.finish([p0])
+        missing = multihost.missing_shards(out, 2)
+        check(missing == [1], f"(d) missing_shards gave {missing}, not [1]")
+        ranks.finish([ranks.spawn(wav, out, 1, 2, None)])
+        merged = os.path.join(tmp, "recovered.sela")
+        multihost.merge_shards(out, 2, merged)
+        with open(merged, "rb") as f:
+            ok = hashlib.sha256(f.read()).hexdigest() == digest
+        log(f"(d) rank 1 of 2 killed after joining: rank 0 exited 0, "
+            f"missing_shards {missing}; rank 1 re-run alone; the merge's "
+            f"sha256 equals the single encode's: {ok}")
+        check(ok, "the recovered merge differs from one encode_wav")
+    return dict(frames=F, steps=steps, sharded=sharded, peak_gib=peak,
+                single_s=walls, cores=cores,
+                runs={k: {kk: v[kk] for kk in ("info", "efficiency",
+                                               "process_efficiency")}
+                      | {"wall_s": [d["wall_s"] for d in v["lines"]],
+                         "process_s": [d["process_s"] for d in v["lines"]]}
+                      for k, v in runs.items()})
 
 
 def main(argv: list[str]) -> int:
@@ -1666,12 +1978,22 @@ def main(argv: list[str]) -> int:
                       bitio, cd)
     paths = phase_slice(torch, bench, decoder, stream, WavData, k_lpc, k_iir,
                         k_enc, k_pack, cd, dec_main, enc_main)
+    par = phase_parallel(torch, encoder, decoder, WavData, Metrics, k_lpc,
+                         k_iir, k_enc, cd, c32)
+    sharded = par["sharded"]
 
-    def entry(name, source, replaces, res, launches, library_ms=None, **extra):
+    log("== phase 13: summary")
+
+    def entry(name, source, replaces, res, launches, library_ms=None,
+              launches_by_path=None, **extra):
+        # phase 12's launches: the sharded steps' (the packer is not on them)
+        by_path = dict(launches_by_path or {})
+        if name in SHARDED_NAMES:
+            by_path["sharded"] = sharded[SHARDED_NAMES[name]]
         return dict(name=name, route="cuda", source=f"sela_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches, **res,
                     share=share(res["bound_ms"], res["ms"]),
-                    library_ms=library_ms, **extra)
+                    library_ms=library_ms, launches_by_path=by_path, **extra)
 
     kernels = [
         entry("lpc_from_q", "lpc.cu", "sela_tpu/kernels/coeffs.py:60", lpc,

@@ -11,10 +11,16 @@
     python -m sela_tpu_torch.cli encode-batch a.wav b.wav ... out_dir [--cpu]
     python -m sela_tpu_torch.cli decode-batch a.sela b.sela ... out_dir [--cpu]
     python -m sela_tpu_torch.cli bench [--seconds S] [--cpu] [--detail PATH]
+    python -m sela_tpu_torch.cli encode-shard in.wav shard_dir [--rank R]
+                                              [--n-hosts N] [--cpu]
+    python -m sela_tpu_torch.cli merge-shards shard_dir out.sela --n-hosts N
 
-`encode`, `decode`, `verify`, `play`, the batch commands and `bench` run on
-the CUDA card unless --cpu is given (then the plain PyTorch versions of the
-kernels run); `info` and `tag` are host-only. Profile flags:
+`encode`, `decode`, `verify`, `play`, the batch commands, `encode-shard`
+and `bench` run on the CUDA card unless --cpu is given (then the plain
+PyTorch versions of the kernels run); `info`, `tag` and `merge-shards` are
+host-only. `encode-shard` without --rank takes its rank and the number of
+ranks from the torch.distributed environment (MASTER_ADDR, WORLD_SIZE,
+RANK); `merge-shards` exits 3 naming the ranks whose parts are missing. Profile flags:
 --frame-size, --max-order, --rice-k-max, --no-mid-side, --exact-mid-side,
 --partition-residues (the v2 profile). `encode --tag KEY=VALUE`
 (repeatable) appends a tags trailer. The `selax` entry point of the JAX
@@ -262,6 +268,40 @@ def cmd_decode_batch(args) -> int:
     return 0
 
 
+def cmd_encode_shard(args) -> int:
+    import torch.distributed as dist
+
+    from .parallel.multihost import encode_shard, init_distributed
+    from .ref.wav import read_wav
+
+    rank, n_hosts = args.rank, args.n_hosts
+    if rank is None:   # the torch.distributed environment's topology
+        rank, n_hosts = init_distributed()
+    try:
+        m = encode_shard(read_wav(args.input), args.out_dir, rank, n_hosts,
+                         chunk_frames=args.chunk_frames, device=_device(args))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"shard {rank}/{n_hosts}: frames [{m['frame_lo']}, {m['frame_hi']}) "
+          f"-> {_human(m['bytes'])} ({m['sha256'][:12]}) in {m['wall_s']:.2f}s")
+    return 0
+
+
+def cmd_merge_shards(args) -> int:
+    from .parallel.multihost import merge_shards, missing_shards
+
+    missing = missing_shards(args.shard_dir, args.n_hosts)
+    if missing:
+        print(f"error: missing shards {missing}: re-run encode-shard for them",
+              file=sys.stderr)
+        return 3
+    info = merge_shards(args.shard_dir, args.n_hosts, args.output)
+    print(f"merged {info['hosts']} shards, {info['frames']} frames -> "
+          f"{args.output}")
+    return 0
+
+
 def cmd_bench(args) -> int:
     from .bench import run_bench
 
@@ -345,6 +385,17 @@ def build_parser() -> argparse.ArgumentParser:
     db = add("decode-batch", cmd_decode_batch, "batch .sela -> WAV dir")
     db.add_argument("inputs", nargs="+")
     db.add_argument("out_dir")
+    es = add("encode-shard", cmd_encode_shard,
+             "encode one rank's frame range of a long WAV")
+    es.add_argument("input")
+    es.add_argument("out_dir")
+    es.add_argument("--rank", type=int, default=None)
+    es.add_argument("--n-hosts", type=int, default=1)
+    ms = add("merge-shards", cmd_merge_shards,
+             "rank-ordered merge of shard parts into one .sela")
+    ms.add_argument("shard_dir")
+    ms.add_argument("output")
+    ms.add_argument("--n-hosts", type=int, required=True)
     return ap
 
 

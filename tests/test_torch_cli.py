@@ -1,6 +1,8 @@
-"""The port's CLI commands over the tags, the corpus batch codec and the
-streaming player, on the CPU: `tag` writes the bytes `selax tag` writes;
-`encode-batch`/`decode-batch` and `play --wav-out` round-trip with --cpu."""
+"""The port's CLI commands over the tags, the corpus batch codec, the
+streaming player and the shard encode, on the CPU: `tag` writes the bytes
+`selax tag` writes; `encode-batch`/`decode-batch` and `play --wav-out`
+round-trip with --cpu; `encode-shard` for each rank then `merge-shards`
+writes the bytes of `encode --cpu`, and a missing rank exits 3."""
 import numpy as np
 import pytest
 
@@ -85,3 +87,38 @@ def test_play_wav_out_round_trip(sela_file, tmp_path, capsys):
         np.testing.assert_array_equal(a, b)
     src.write_bytes(src.read_bytes()[:-3])   # damage reaches the player
     assert main(["play", str(src), "--cpu"]) == 2
+
+
+@pytest.mark.parametrize("n_hosts", [1, 3])
+def test_encode_shard_then_merge_shards_equals_encode(tmp_path, rng,
+                                                      signal_factory, capsys,
+                                                      n_hosts):
+    n = 2048 * 4 + 300
+    w = WavData(44100, 16, [signal_factory(rng, n, kind="ar"),
+                            signal_factory(rng, n, kind="tone")])
+    wav, shards = str(tmp_path / "in.wav"), str(tmp_path / "shards")
+    write_wav(wav, w)
+    for rank in range(n_hosts):
+        assert main(["encode-shard", wav, shards, "--rank", str(rank),
+                     "--n-hosts", str(n_hosts), "--cpu",
+                     "--chunk-frames", "2"]) == 0
+    assert f"shard {n_hosts - 1}/{n_hosts}" in capsys.readouterr().out
+    merged, single = tmp_path / "merged.sela", tmp_path / "single.sela"
+    assert main(["merge-shards", shards, str(merged), "--n-hosts",
+                 str(n_hosts)]) == 0
+    assert main(["encode", wav, str(single), "--cpu"]) == 0
+    assert merged.read_bytes() == single.read_bytes()
+
+
+def test_merge_shards_with_a_missing_rank_exits_3(tmp_path, rng,
+                                                  signal_factory, capsys):
+    w = WavData(44100, 16, [signal_factory(rng, 2048 * 3, kind="ar")])
+    wav, shards = str(tmp_path / "in.wav"), str(tmp_path / "shards")
+    write_wav(wav, w)
+    for rank in (0, 2):
+        assert main(["encode-shard", wav, shards, "--rank", str(rank),
+                     "--n-hosts", "3", "--cpu"]) == 0
+    out = tmp_path / "merged.sela"
+    assert main(["merge-shards", shards, str(out), "--n-hosts", "3"]) == 3
+    assert "missing shards [1]" in capsys.readouterr().err
+    assert not out.exists()

@@ -623,3 +623,63 @@ def test_stream_decode_on_card(dev):
     for c in range(2):
         np.testing.assert_array_equal(pcm[:, c], want.channels[c])
         np.testing.assert_array_equal(played[:, c], rows[c])
+
+
+def _frames(rng, F: int, C: int, S: int = 2048, bits: int = 16):
+    """[F, C, S] int32 frames of _audio channels, the last one a tail."""
+    rows = _audio(rng, C, F * S, bits=bits)
+    x = np.ascontiguousarray(rows.reshape(C, F, S).transpose(1, 0, 2))
+    nv = np.full(F, S, np.int32)
+    nv[-1] = S - 321
+    x[-1, :, nv[-1]:] = 0
+    return x, nv
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0"] * 3],
+                         ids=["1", "3"])
+@pytest.mark.parametrize("partition", [1, 4])
+def test_sharded_steps_equal_unsharded_on_card(dev, devices, partition):
+    """F = 10 over 1 and 3 shards of cuda:0 (the last padded): the encode
+    equals the unsharded encode_step on the card, key for key, and the
+    sharded codec step is exact, its PCM the input's."""
+    from sela_tpu_torch.codec.pipeline import encode_step
+    from sela_tpu_torch.parallel import mesh
+
+    x, nv = _frames(np.random.default_rng(partition + len(devices)), 10, 2)
+    m = mesh.data_mesh(devices=devices)
+    got = mesh.sharded_encode_step(m, partition=partition)(x, nv)
+    want = encode_step(torch.from_numpy(x).to(dev), torch.from_numpy(nv).to(dev),
+                       partition=partition)
+    for key in want:
+        assert got[key].device == want[key].device, key
+        assert torch.equal(got[key], want[key]), key
+    pcm, exact = mesh.sharded_codec_step(m, partition=partition)(x, nv)
+    assert bool(exact.all())
+    valid = np.arange(2048)[None, None, :] < nv[:, None, None]
+    np.testing.assert_array_equal(np.where(valid, pcm.cpu().numpy(), 0), x)
+
+
+def test_dryrun_multichip_on_card(dev):
+    from sela_tpu_torch.parallel import mesh
+
+    x, nv = _frames(np.random.default_rng(12), 9, 2)
+    before = k_enc.launches["quarter_counts"]
+    mesh.dryrun_multichip(mesh.data_mesh(devices=["cuda:0"] * 4), x, nv)
+    assert k_enc.launches["quarter_counts"] > before
+
+
+@pytest.mark.parametrize("n_hosts", [1, 3])
+def test_encode_shard_merge_equals_encode_wav_on_card(dev, tmp_path, n_hosts):
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.parallel import multihost
+    from sela_tpu_torch.ref.wav import WavData
+
+    rows = _audio(np.random.default_rng(13), 2, 2048 * 7 + 99)
+    w = WavData(44100, 16, list(rows))
+    for rank in range(n_hosts):
+        multihost.encode_shard(w, str(tmp_path), rank, n_hosts,
+                               chunk_frames=2)   # the card by default
+    out = str(tmp_path / "merged.sela")
+    multihost.merge_shards(str(tmp_path), n_hosts, out)
+    with open(out, "rb") as f:
+        assert f.read() == encode_wav(w, device="cuda")

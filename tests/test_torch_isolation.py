@@ -41,7 +41,8 @@ ENCODE_MODULES = ("config.py", "codec/encoder.py", "codec/pipeline.py",
                   "kernels/encode.py", "ops/analysis.py", "ops/filters.py",
                   "ops/rice.py", "native/bitio.py", "cli.py", "bench.py",
                   "codec/corpus.py", "codec/stream.py", "kernels/pack.py",
-                  "ops/pack.py", "utils/bitpack.py")
+                  "ops/pack.py", "utils/bitpack.py", "parallel/mesh.py",
+                  "parallel/multihost.py", "parallel/shard_worker.py")
 
 
 def test_port_sources_import_no_jax():
@@ -155,6 +156,30 @@ def test_bench_without_device_raises_on_cuda_less_host():
     _no_cuda_clip()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_bench(0.01)
+
+
+def test_parallel_without_device_raises_on_cuda_less_host(tmp_path):
+    """data_mesh(), encode_shard and the shard worker default to the card;
+    data_mesh never falls back to the CPU."""
+    from sela_tpu_torch.parallel import mesh, multihost, shard_worker
+    from sela_tpu_torch.ref.wav import write_wav
+
+    w = _no_cuda_clip()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.data_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.data_mesh(devices=["cuda:0"] * 2)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            multihost.encode_shard(w, str(tmp_path / "s"), 0, 2, device=device)
+    assert not (tmp_path / "s").exists()   # nothing written before raising
+    wav = str(tmp_path / "in.wav")
+    write_wav(wav, w)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shard_worker.main([wav, str(tmp_path / "s"), "--rank", "0",
+                           "--n-hosts", "1"])
+    assert multihost.encode_shard(w, str(tmp_path / "s"), 0, 1,
+                                  device="cpu")["n_frames"] == 1
 
 
 def test_chip_smoke_fails_without_cuda():
