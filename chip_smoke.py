@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device  — require CUDA, print the card's name, count, power limit and
              maximum SM clock;
-2. build   — build the eight CUDA kernel libraries and the native bit I/O
+2. build   — build the nine CUDA kernel libraries and the native bit I/O
              library from this checkout's sources, all compilers started
              together; print the build seconds, what `-Xptxas -v` says and
              each library's static SASS instruction mix (`cuobjdump`);
@@ -135,9 +135,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
              the 1-rank run; (d) one of two ranks killed after joining: the
              other exits 0, `missing_shards` names the dead one, which re-run
              alone gives the same sha256;
-13. each kernel's share of its bound, the `kernels` JSON line (with each
-   kernel's launches on phase 12's sharded path), then the card's name
-   and power limit, then the last line `{"ok": true, "device": {...}}`.
+13. the tools (`sela_tpu_torch.tools`) — (a) K9, the int32 chain kernel
+             (csrc/int_chain.cu), against its plain version, exactly, at
+             [8, 128] with T = 1,000, at the roofline tool's four readings
+             ([512, 128] at T = 2^16 and 2^19, [8, 128] at 2^20 and 2^23)
+             and at its card-filling [2,112, 128]; (b) its static SASS: one
+             IMAD a step (UNROLL in the unrolled loop, one in the remainder
+             loop, each with the step's addend); (c) `tools.roofline` in
+             full, K9's launches counted; (d) `tools.profile_stages --only`
+             for every stage, in process, at F = 1,024, and the glue of
+             `encode_step`; (e) `tools.sweep_ratio --seconds 10`; (f)
+             `tools.measure_scaling --ranks 2` at its default 48 s (the
+             merge's sha256 is a hard gate; its efficiency exit code is a
+             reading); (g) `tools.check_regression` on a bench line of this
+             run: against itself it passes, with every ratio grown 20% it
+             fails, against another device's name it refuses;
+14. each kernel's share of its bound, the `kernels` JSON line (with each
+   kernel's launches on phase 12's sharded path and K9's on phase 13's
+   roofline), then the card's name and power limit, then the last line
+   `{"ok": true, "device": {...}}`.
 
 Comparisons of the normative integer kernels are exact (max_abs_err 0); K3's
 tolerance and K4's rule are stated in phase 6. Kernel times are CUDA-event
@@ -159,13 +175,16 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67
-# TFLOP/s of float32 outside the tensor cores with an FMA counted as two,
-# i.e. 33.5e12 lane-instructions a second. Integer work is counted in int32
-# lane-instructions at that rate; a 32x32->64 multiply-add into a 64-bit sum
-# counts 4 (the wide product 2, the carried 64-bit add 2).
+# Peaks of one H100 SXM: 3.35 TB/s of HBM and 67 TFLOP/s of float32 outside
+# the tensor cores with an FMA counted as two (NVIDIA's data sheet). Integer
+# work is counted in int32 lane-instructions at 64 a clock a SM (132 SMs,
+# the maximum SM clock of 1,980 MHz): the K9 chain kernel (tools/roofline)
+# measured 61.2 independent 32-bit IMADs a clock a SM on a card-filling
+# shape, on an H100 80GB HBM3 at 700 W, not the float32 FMA lanes' 128. A
+# 32x32->64 multiply-add into a 64-bit sum counts 4 (the wide product 2,
+# the carried 64-bit add 2).
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12 / 2
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 FLOPS_PER_S = 67e12                 # float32, an FMA counted as two
 MAC64_OPS = 4
 LEVINSON_STEP_OPS = MAC64_OPS + 6   # + round, shift, subtract, clamp (64-bit)
@@ -479,8 +498,8 @@ def sass_mix(cuobjdump: str, lib: str) -> str:
     return ", ".join(f"{op} {n}" for op, n in ops.most_common(10))
 
 
-def phase_build(k_lpc, k_iir, k_enc, k_pack, bitio, build_log, build_dir,
-                nvcc) -> None:
+def phase_build(k_lpc, k_iir, k_enc, k_pack, k_chain, bitio, build_log,
+                build_dir, nvcc) -> None:
     log("== phase 2: build")
 
     def timed(fn):
@@ -490,7 +509,8 @@ def phase_build(k_lpc, k_iir, k_enc, k_pack, bitio, build_log, build_dir,
 
     t0 = time.perf_counter()
     jobs = {"sela_lpc": k_lpc.load, "sela_iir": k_iir.load,
-            "sela_pack": k_pack.load, "selabitio": bitio.load}
+            "sela_pack": k_pack.load, "sela_int_chain": k_chain.load,
+            "selabitio": bitio.load}
     for kernel, spec in k_enc.KERNELS.items():
         jobs[spec[0]] = (lambda kernel=kernel: k_enc.load(kernel))
     with ThreadPoolExecutor(len(jobs)) as ex:
@@ -1852,6 +1872,190 @@ def phase_parallel(torch, encoder, decoder, WavData, Metrics, k_lpc, k_iir,
                       for k, v in runs.items()})
 
 
+# K9 at the roofline tool's readings: (rows, T), the first its timed shape
+CHAIN_READINGS = ((512, 1 << 19), (512, 1 << 16), (8, 1 << 20), (8, 1 << 23),
+                  (2112, 1 << 16))
+CHAIN_ADDEND = "0x3039"   # b = 12345, the addend of every chain step's IMAD
+
+
+def chain_sass_loops(cuobjdump: str, lib: str) -> list[int]:
+    """The chain steps in each loop of K9's static SASS: for every backward
+    branch, the IMADs with the step's addend between its target and it. A
+    reassociated pair of steps would be one IMAD with another addend."""
+    import re
+
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    ins = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4})\*/\s+([^;]*);", sass)]
+    imad = [a for a, op in ins if re.fullmatch(
+        r"IMAD (R\d+), \1, R\d+(\.reuse)?, " + CHAIN_ADDEND, op.strip())]
+    plain = [a for a, op in ins if re.match(r"IMAD\s", op.strip())]
+    check(len(plain) == len(imad),
+          f"K9's SASS has {len(plain) - len(imad)} IMADs other than the "
+          "chain's steps")
+    loops = []
+    for a, op in ins:
+        m = re.search(r"\bBRA (0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            loops.append(sum(int(m.group(1), 16) <= x < a for x in imad))
+    return loops
+
+
+def phase_tools(torch, k_chain, k_lpc, k_iir, k_enc, build_dir, nvcc) -> dict:
+    """Phase 13: K9 against its plain version and its SASS, then each tool
+    of sela_tpu_torch.tools on the card."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sela_tpu_torch import bench
+    from sela_tpu_torch.ops.chain import int_chain, int_chain_reference
+    from sela_tpu_torch.tools import (check_regression, measure_scaling,
+                                      profile_stages, roofline, sweep_ratio)
+
+    log("== phase 13: the tools (K9, roofline, profile_stages, sweep_ratio, "
+        "measure_scaling, check_regression)")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def tool_line(main, argv) -> tuple[int, dict]:
+        """A tool's main in this process: its exit code and its JSON line
+        (stdout captured; stderr passes through)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) == 1, f"{main.__module__} printed {len(lines)} "
+              "lines on stdout, not one JSON line")
+        return rc, json.loads(lines[0])
+
+    # (a) K9 against its plain version, exactly
+    rng = np.random.default_rng(9)
+    err = 0
+    for rows, steps in ((8, 1000), *CHAIN_READINGS):
+        x = rng.integers(-(1 << 31), 1 << 31, (rows, 128), dtype=np.int64)
+        x[0, :2] = (-(1 << 31), (1 << 31) - 1)
+        xd = torch.from_numpy(x.astype(np.int32)).to(dev)
+        got = int_chain(xd, steps)
+        want = int_chain_reference(xd, steps)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        log(f"K9 [{rows}, 128] T={steps}: exact={e == 0}")
+        check(e == 0, f"K9 disagrees with its plain version at [{rows}, 128], "
+              f"T={steps}")
+        err = max(err, e)
+    rows, steps = CHAIN_READINGS[0]
+    xd = torch.zeros((rows, 128), dtype=torch.int32, device=dev)
+    ms = time_kernel(torch, lambda: int_chain(xd, steps), 10)
+    plain = time_plain(torch, lambda: int_chain_reference(xd, steps), 5)
+    bms, by = bound_ms(2 * rows * 128 * 4, rows * 128 * steps)
+    log(f"K9 [{rows}, 128] T={steps}: kernel {ms:.4f} ms, plain {plain:.4f} ms,"
+        f" bound {bms:.4f} ms ({by}), share {share(bms, ms):.3f}")
+    k9 = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+              bound_by=by, shape=[rows, 128], steps=steps)
+
+    # (b) one IMAD a chain step in the static SASS
+    cuobjdump = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    loops = chain_sass_loops(cuobjdump, os.path.join(build_dir,
+                                                     "libsela_int_chain.so"))
+    log(f"K9 SASS: chain-step IMADs a loop {loops} (UNROLL "
+        f"{k_chain.UNROLL}, then the remainder loop)")
+    check(loops == [k_chain.UNROLL, 1],
+          f"K9's loops hold {loops} chain-step IMADs, not "
+          f"[{k_chain.UNROLL}, 1]: one IMAD a step is not what runs")
+    k9["sass_imads_a_loop"] = loops
+
+    # (c) the roofline tool in full: K9's main path
+    k_chain.launches = 0
+    reset_launches(k_lpc, k_iir, k_enc)
+    t0 = time.perf_counter()
+    rc, roof = tool_line(roofline.main, [])
+    k9["launches"] = k_chain.launches
+    i32 = roof["int32"]
+    log(f"roofline ({time.perf_counter() - t0:.1f} s): IMADs a clock a SM "
+        f"{i32['imad_per_clk_per_sm']:.2f} at [512, 128], "
+        f"{i32['imad_per_clk_per_sm_fill']:.2f} at [2112, 128]; "
+        f"{i32['imad_per_s']:.5g} and {i32['imad_per_s_fill']:.5g} IMAD/s "
+        f"({i32['int32_tput_gops']:.1f} Gop/s in the JAX count); dependent "
+        f"step {i32['dependent_step_ns']:.4f} ns = "
+        f"{i32['dependent_step_cycles']:.3f} cycles at {i32['sm_clock_mhz']} "
+        f"MHz; K9 launches {k_chain.launches}")
+    log(f"roofline: IIR {roof['iir']}; encode kernels "
+        f"{roof['encode_kernels']}; model {roof['model']}")
+    log("roofline line: " + json.dumps(roof))
+    check(rc == 0 and k_chain.launches > 0,
+          f"the roofline tool failed or did not launch K9 (exit {rc})")
+    k9["roofline"] = {k: i32[k] for k in (
+        "imad_per_clk_per_sm", "imad_per_clk_per_sm_fill", "imad_per_s_fill",
+        "dependent_step_ns", "dependent_step_cycles", "sm_clock_mhz")}
+
+    # (d) every stage of profile_stages, --only, in this process
+    t0 = time.perf_counter()
+    stages = {}
+    for name in profile_stages.STAGE_NAMES:
+        rc, rec = tool_line(profile_stages.main, ["1024", "--only", name])
+        check(rc == 0, f"profile_stages --only {name} failed")
+        stages[name] = rec[name]
+        log(f"  {name:18s} {rec[name]['ms']:9.4f} ms "
+            f"{rec[name]['pcm16_gbps']:9.2f} GB/s-equiv")
+    glue = profile_stages.glue(stages)
+    log(f"profile_stages F=1024 ({time.perf_counter() - t0:.1f} s): "
+        f"encode_step(fus) {glue['encode_step_ms']:.4f} ms, its kernels' "
+        f"stages {glue['kernel_stages_ms']:.4f} ms, glue {glue['glue_ms']:.4f}"
+        f" ms = {glue['glue_share']:.3f} of it")
+
+    # (e) the ratio sweep on the card
+    t0 = time.perf_counter()
+    rc, sweep = tool_line(sweep_ratio.main, ["--seconds", "10"])
+    log(f"sweep_ratio --seconds 10 ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps({k: v for k, v in sweep.items() if k != "device"}))
+    check(rc == 0 and sweep["exact_order_stream_bits"]
+          <= sweep["coeff_bit_cost_sweep_stream_bits"]["7"],
+          "sweep_ratio failed, or the exact-order bits exceed the model's")
+
+    # (f) the shard encode's scaling, pinned; the sha256 gate raises
+    t0 = time.perf_counter()
+    rc, scaling = tool_line(measure_scaling.main, ["--ranks", "2"])
+    log(f"measure_scaling --ranks 2 ({time.perf_counter() - t0:.1f} s, exit "
+        f"{rc}: {'at or above' if rc == 0 else 'below'} 0.80, a reading): "
+        + json.dumps({k: v for k, v in scaling.items() if k != "device"}))
+    check(scaling["runs"]["2"]["bit_exact_merge"],
+          "measure_scaling: the 2-rank merge is not the single rank's bytes")
+
+    # (g) the regression gate on a bench line of this run
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = bench.run_bench(20.0, "cuda", iters=1)
+    log(f"bench line ({time.perf_counter() - t0:.1f} s): {out.getvalue().strip()}")
+    grown = json.loads(json.dumps(line))
+    for sub in grown["summary"].values():
+        if isinstance(sub, dict) and "compression_ratio" in sub:
+            sub["compression_ratio"] *= 1.2
+    other = json.loads(json.dumps(line))
+    other["device"]["name"] = "another device"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, rec in (("line", line), ("grown", grown), ("other", other)):
+            paths[name] = os.path.join(tmp, f"{name}.json")
+            with open(paths[name], "w") as f:
+                json.dump(rec, f)
+        gate = {name: tool_line(check_regression.main, [
+            "--previous", paths["line"], "--current", paths[name]])
+            for name in ("line", "grown", "other")}
+    log("check_regression: itself exit {}, ratios +20% exit {} ({} "
+        "failures), another device exit {}".format(
+            gate["line"][0], gate["grown"][0],
+            len(gate["grown"][1].get("failures", [])), gate["other"][0]))
+    check((gate["line"][0], gate["grown"][0], gate["other"][0]) == (0, 1, 2),
+          "check_regression did not pass the line against itself, fail the "
+          "grown ratios and refuse another device")
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(k9=k9, roofline=roof, stages=stages, glue=glue,
+                sweep_ratio=sweep, scaling=scaling)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1868,6 +2072,7 @@ def main(argv: list[str]) -> int:
     from sela_tpu_torch import bench
     from sela_tpu_torch.codec import decoder, encoder, pipeline, stream
     from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.kernels import chain as k_chain
     from sela_tpu_torch.kernels import coeffs as k_lpc
     from sela_tpu_torch.kernels import encode as k_enc
     from sela_tpu_torch.kernels import iir as k_iir
@@ -1885,7 +2090,8 @@ def main(argv: list[str]) -> int:
     from sela_tpu_torch.utils.build import BUILD_DIR, build_log, nvcc
     from sela_tpu_torch.utils.metrics import Metrics
 
-    phase_build(k_lpc, k_iir, k_enc, k_pack, bitio, build_log, BUILD_DIR, nvcc)
+    phase_build(k_lpc, k_iir, k_enc, k_pack, k_chain, bitio, build_log,
+                BUILD_DIR, nvcc)
     enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                 container, k_lpc, k_iir, k_enc)
     v2 = BitstreamProfile(residue_partition=4)
@@ -1981,8 +2187,10 @@ def main(argv: list[str]) -> int:
     par = phase_parallel(torch, encoder, decoder, WavData, Metrics, k_lpc,
                          k_iir, k_enc, cd, c32)
     sharded = par["sharded"]
+    tools = phase_tools(torch, k_chain, k_lpc, k_iir, k_enc, BUILD_DIR, nvcc)
+    k9 = tools["k9"]
 
-    log("== phase 13: summary")
+    log("== phase 14: summary")
 
     def entry(name, source, replaces, res, launches, library_ms=None,
               launches_by_path=None, **extra):
@@ -2028,6 +2236,14 @@ def main(argv: list[str]) -> int:
               launches_by_path={"encode_wav and decode_sela": 0,
                                 "bench_device_pack": paths[
                                     "device_pack_launches"]}),
+        # the chain's path is the roofline tool (phase 13 (c))
+        entry("int_chain", "int_chain.cu", "tools/roofline.py:79",
+              {k: k9[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by")}, k9["launches"],
+              launches_by_path={"roofline": k9["launches"]},
+              shape=k9["shape"], steps=k9["steps"],
+              sass_imads_a_loop=k9["sass_imads_a_loop"],
+              readings=k9["roofline"]),
     ]
     log("share of the bound (bound ms / kernel ms, warm L2): " + ", ".join(
         f"{k['name']} {k['share']:.3f}" for k in kernels)

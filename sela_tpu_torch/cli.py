@@ -1,9 +1,12 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m sela_tpu_torch.cli encode in.wav out.sela [--cpu] [profile flags]
-                                        [--tag KEY=VALUE ...]
+                                        [--tag KEY=VALUE ...] [--engine E]
+                                        [--log-json] [--profile-trace DIR]
     python -m sela_tpu_torch.cli decode in.sela out.wav [--cpu] [--chunk-frames N]
-    python -m sela_tpu_torch.cli verify in.wav [--cpu] [profile flags]
+                                        [--engine E] [--log-json]
+                                        [--profile-trace DIR]
+    python -m sela_tpu_torch.cli verify in.wav [--cpu] [profile flags] [--engine E]
     python -m sela_tpu_torch.cli info file.sela
     python -m sela_tpu_torch.cli tag file.sela [--set KEY=VALUE ...] [--clear]
                                      [--format setg|apev2] [--output PATH]
@@ -23,7 +26,15 @@ ranks from the torch.distributed environment (MASTER_ADDR, WORLD_SIZE,
 RANK); `merge-shards` exits 3 naming the ranks whose parts are missing. Profile flags:
 --frame-size, --max-order, --rice-k-max, --no-mid-side, --exact-mid-side,
 --partition-residues (the v2 profile). `encode --tag KEY=VALUE`
-(repeatable) appends a tags trailer. The `selax` entry point of the JAX
+(repeatable) appends a tags trailer. `--engine ref` (encode, decode,
+verify) runs the port's numpy oracle (`ref/codec.py`) in place of the
+device codec; `--log-json` (encode, decode) writes one JSON-lines metrics
+record to stderr; `--profile-trace DIR` (encode, decode) writes a
+torch.profiler trace (CPU and CUDA activities) into DIR. `-e`, `-d` and
+`-p` stand for encode, decode and play. A missing file, a malformed WAV or
+`.sela` and a bad value exit 2 with a one-line message. The JAX CLI's
+`decode --iir` has no counterpart: one IIR kernel serves K2's and K7's
+contracts, chosen by the device. The `selax` entry point of the JAX
 package is separate and unchanged.
 """
 from __future__ import annotations
@@ -76,23 +87,49 @@ def _device(args):
     return "cpu" if args.cpu else None
 
 
+def _metrics_from(args):
+    from .utils.metrics import NULL_METRICS, Metrics
+
+    return Metrics() if args.log_json else NULL_METRICS
+
+
+def _engine(args) -> str:
+    """What ran: the oracle, or the device codec on its device."""
+    if args.engine == "ref":
+        return "engine=ref"
+    return f"device={'cpu' if args.cpu else 'cuda'}"
+
+
 def cmd_encode(args) -> int:
-    from .codec.encoder import encode_wav
     from .ref.wav import read_wav
+    from .utils.metrics import profiler_trace
 
     w = read_wav(args.input)
     profile = _profile_from(args)
+    tags = _parse_tags(args.tags or [])
+    m = _metrics_from(args)
     t0 = time.perf_counter()
-    buf = encode_wav(w, chunk_frames=args.chunk_frames, profile=profile,
-                     tags=_parse_tags(args.tags or []), device=_device(args))
+    with profiler_trace(args.profile_trace):
+        if args.engine == "ref":
+            from .ref.codec import encode_wav
+
+            buf = encode_wav(w, profile=profile, tags=tags)
+        else:
+            from .codec.encoder import encode_wav
+
+            buf = encode_wav(w, chunk_frames=args.chunk_frames,
+                             profile=profile, metrics=m, tags=tags,
+                             device=_device(args))
     dt = time.perf_counter() - t0
     with open(args.output, "wb") as f:
         f.write(buf)
+    if args.log_json:
+        m.emit("encode")
     raw = w.n_samples * w.n_channels * w.bits_per_sample // 8
     print(
         f"encoded {args.input}: {_human(raw)} -> {_human(len(buf))} "
         f"(ratio {len(buf) / raw:.3f}) in {dt:.2f}s [{_human(raw / dt)}/s, "
-        f"device={'cpu' if args.cpu else 'cuda'}]"
+        f"{_engine(args)}]"
     )
     return 0
 
@@ -104,9 +141,17 @@ def cmd_verify(args) -> int:
     from .ref.wav import read_wav
 
     w = read_wav(args.input)
-    buf = encode_wav(w, chunk_frames=args.chunk_frames,
-                     profile=_profile_from(args), device=_device(args))
-    out = decode_sela(buf, chunk_frames=args.chunk_frames, device=_device(args))
+    if args.engine == "ref":
+        from .ref.codec import decode_sela as ref_decode
+        from .ref.codec import encode_wav as ref_encode
+
+        buf = ref_encode(w, profile=_profile_from(args))
+        out = ref_decode(buf)
+    else:
+        buf = encode_wav(w, chunk_frames=args.chunk_frames,
+                         profile=_profile_from(args), device=_device(args))
+        out = decode_sela(buf, chunk_frames=args.chunk_frames,
+                          device=_device(args))
     ok = (
         out.sample_rate == w.sample_rate
         and out.bits_per_sample == w.bits_per_sample
@@ -115,26 +160,36 @@ def cmd_verify(args) -> int:
     )
     raw = w.n_samples * w.n_channels * w.bits_per_sample // 8
     print(f"verify {args.input}: {'BIT-EXACT' if ok else 'MISMATCH'} "
-          f"(ratio {len(buf) / raw:.3f}, device="
-          f"{'cpu' if args.cpu else 'cuda'})")
+          f"(ratio {len(buf) / raw:.3f}, {_engine(args)})")
     return 0 if ok else 1
 
 
 def cmd_decode(args) -> int:
-    from .codec.decoder import decode_sela
     from .ref.wav import write_wav
+    from .utils.metrics import profiler_trace
 
     with open(args.input, "rb") as f:
         buf = f.read()
+    m = _metrics_from(args)
     t0 = time.perf_counter()
-    w = decode_sela(buf, chunk_frames=args.chunk_frames, device=_device(args))
+    with profiler_trace(args.profile_trace):
+        if args.engine == "ref":
+            from .ref.codec import decode_sela
+
+            w = decode_sela(buf)
+        else:
+            from .codec.decoder import decode_sela
+
+            w = decode_sela(buf, chunk_frames=args.chunk_frames, metrics=m,
+                            device=_device(args))
     dt = time.perf_counter() - t0
     write_wav(args.output, w)
+    if args.log_json:
+        m.emit("decode")
     raw = w.n_samples * w.n_channels * w.bits_per_sample // 8
     print(
         f"decoded {args.input}: {_human(len(buf))} -> {_human(raw)} "
-        f"in {dt:.2f}s [{_human(raw / dt)}/s, device="
-        f"{'cpu' if args.cpu else 'cuda'}]"
+        f"in {dt:.2f}s [{_human(raw / dt)}/s, {_engine(args)}]"
     )
     return 0
 
@@ -343,18 +398,33 @@ def build_parser() -> argparse.ArgumentParser:
                         help="adaptive 4-way partitioned residues (smaller "
                              "files on transient content; FORMAT.md)")
 
+    def add_engine(sp, observe=True):
+        sp.add_argument("--engine", choices=("torch", "ref"), default="torch",
+                        help="torch = the device codec (default), ref = the "
+                             "numpy oracle")
+        if observe:
+            sp.add_argument("--log-json", action="store_true",
+                            help="emit one JSON-lines metrics record to "
+                                 "stderr")
+            sp.add_argument("--profile-trace", default=None, metavar="DIR",
+                            help="write a torch.profiler trace (Chrome/"
+                                 "Perfetto JSON) into DIR")
+
     enc = add("encode", cmd_encode, "WAV -> .sela")
     enc.add_argument("input")
     enc.add_argument("output")
     enc.add_argument("--tag", action="append", metavar="KEY=VALUE",
                      dest="tags", help="attach a metadata tag (repeatable)")
     add_profile_flags(enc)
+    add_engine(enc)
     dec = add("decode", cmd_decode, ".sela -> WAV")
     dec.add_argument("input")
     dec.add_argument("output")
+    add_engine(dec)
     ver = add("verify", cmd_verify, "encode + decode, check bit-exactness")
     ver.add_argument("input")
     add_profile_flags(ver)
+    add_engine(ver, observe=False)
     inf = sub.add_parser("info", help="container info")
     inf.add_argument("input")
     inf.set_defaults(fn=cmd_info)
@@ -399,15 +469,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+ALIASES = {"-e": "encode", "-d": "decode", "-p": "play"}
+
+
 def main(argv: list[str] | None = None) -> int:
     from .errors import ContainerError
+    from .ref.wav import WavError
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ALIASES:
+        argv[0] = ALIASES[argv[0]]
     args = build_parser().parse_args(argv)
     try:
         return args.fn(args)
-    except ContainerError as e:
+    except FileNotFoundError as e:
+        print(f"error: file not found: {e.filename}", file=sys.stderr)
+    except (ContainerError, WavError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
-        return 2
+    return 2
 
 
 if __name__ == "__main__":

@@ -60,29 +60,15 @@ def quantize_reflection(g: torch.Tensor, m: int) -> torch.Tensor:
     return torch.clamp(qf, Q_CLAMP_LO, Q_CLAMP_HI).to(torch.int32)
 
 
-def analyze_from_r_reference(r: torch.Tensor, n_valid: torch.Tensor,
-                             max_order: int = MAX_ORDER):
-    """Plain version of K4: r [B, 33] float32 + n_valid [B] ->
-    (order [B] int32, q [B, 32] int32 zero beyond order, cost [B] float32).
-
-    cost(m) = 0.5 n (log(max(err_m + m 2^-12 err_0, 1e-9)) * (1/ln 2)) + 7m
-    for m <= max_order, the first strict minimum ascending; a row with
-    r0 <= 0 has gamma = 0 and err = 1."""
+def _levinson_steps(r: torch.Tensor):
+    """K4's float Levinson-Durbin on r [B, 33] float32, in its IEEE-rounded
+    operations and their order: yields (m, k, e) for m = 1..32, the step's
+    clipped reflection coefficient and prediction error (a row with r0 <= 0
+    starts from e = 1; the callers mask its k and e)."""
     B = r.shape[0]
     r0 = r[:, 0]
-    valid = r0 > 0.0
-    one = torch.ones_like(r0)
-    e = torch.where(valid, r0, one)
-    err0 = e
-    half_nf = 0.5 * n_valid.to(torch.float32)
-
-    def model_bits(err):
-        return half_nf * (torch.log(torch.clamp(err, min=ADJ_MIN)) * LOG2E)
-
-    best_c = model_bits(err0)
-    best_m = torch.zeros(B, dtype=torch.int32, device=r.device)
+    e = torch.where(r0 > 0.0, r0, torch.ones_like(r0))
     a = torch.zeros((B, MAX_ORDER), dtype=torch.float32, device=r.device)
-    q = torch.zeros((B, MAX_ORDER), dtype=torch.int32, device=r.device)
     for m in range(1, MAX_ORDER + 1):
         if m == 1:
             acc = r[:, 1]
@@ -99,6 +85,49 @@ def analyze_from_r_reference(r: torch.Tensor, n_valid: torch.Tensor,
             a[:, : m - 1] = old - k[:, None] * old.flip(1)
         a[:, m - 1] = k
         e = e * (1.0 - k * k)
+        yield m, k, e
+
+
+def levinson_full_reference(r: torch.Tensor):
+    """r [B, 33] float32 -> (err [B, 33] float32, q_full [B, 32] int32):
+    the prediction error after each order 0..32 and the quantized
+    reflections of the full-order recursion (K4's arithmetic; the JAX
+    package's jnp `levinson` + `quantize_reflection`, which the ratio sweep
+    uses). A row with r0 <= 0 has err = 1 and q of gamma = 0."""
+    B = r.shape[0]
+    valid = r[:, 0] > 0.0
+    one = torch.ones_like(r[:, 0])
+    err = torch.empty((B, LAGS), dtype=torch.float32, device=r.device)
+    q = torch.empty((B, MAX_ORDER), dtype=torch.int32, device=r.device)
+    err[:, 0] = torch.where(valid, r[:, 0], one)
+    for m, k, e in _levinson_steps(r):
+        err[:, m] = torch.where(valid, e, one)
+        q[:, m - 1] = quantize_reflection(torch.where(valid, k, 0.0), m - 1)
+    return err, q
+
+
+def analyze_from_r_reference(r: torch.Tensor, n_valid: torch.Tensor,
+                             max_order: int = MAX_ORDER):
+    """Plain version of K4: r [B, 33] float32 + n_valid [B] ->
+    (order [B] int32, q [B, 32] int32 zero beyond order, cost [B] float32).
+
+    cost(m) = 0.5 n (log(max(err_m + m 2^-12 err_0, 1e-9)) * (1/ln 2)) + 7m
+    for m <= max_order, the first strict minimum ascending; a row with
+    r0 <= 0 has gamma = 0 and err = 1."""
+    B = r.shape[0]
+    r0 = r[:, 0]
+    valid = r0 > 0.0
+    one = torch.ones_like(r0)
+    err0 = torch.where(valid, r0, one)
+    half_nf = 0.5 * n_valid.to(torch.float32)
+
+    def model_bits(err):
+        return half_nf * (torch.log(torch.clamp(err, min=ADJ_MIN)) * LOG2E)
+
+    best_c = model_bits(err0)
+    best_m = torch.zeros(B, dtype=torch.int32, device=r.device)
+    q = torch.zeros((B, MAX_ORDER), dtype=torch.int32, device=r.device)
+    for m, k, e in _levinson_steps(r):
         q[:, m - 1] = quantize_reflection(torch.where(valid, k, 0.0), m - 1)
         if m <= max_order:
             adj = torch.where(valid, e, one) + (ORDER_QNOISE_PENALTY * m) * err0

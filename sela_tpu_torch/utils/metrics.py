@@ -11,11 +11,13 @@ do NOT equal device busy-time):
           scatter into pinned buffers + async H2D and kernel launches;
           "device_fetch" — wait on the chunk's CUDA event (device compute
           not hidden behind later host work + D2H PCM) and the host copy.
-For device busy-time use torch.profiler or CUDA events, not these.
+For device busy-time use torch.profiler (`profiler_trace`) or CUDA
+events, not these.
 """
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from contextlib import contextmanager
@@ -83,3 +85,26 @@ class _NullMetrics(Metrics):
 
 NULL_METRICS = _NullMetrics()
 
+
+
+@contextmanager
+def profiler_trace(log_dir: str | None):
+    """torch.profiler scope when log_dir is set: CPU activity, and CUDA
+    activity where a card is present, written on exit into log_dir as a
+    Chrome/Perfetto trace (`trace_<pid>_<time>.json`; open it in
+    ui.perfetto.dev or chrome://tracing). Counterpart of the JAX package's
+    jax.profiler scope."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.strftime('%Y%m%d-%H%M%S')}.json"))

@@ -2,11 +2,20 @@
 streaming player and the shard encode, on the CPU: `tag` writes the bytes
 `selax tag` writes; `encode-batch`/`decode-batch` and `play --wav-out`
 round-trip with --cpu; `encode-shard` for each rank then `merge-shards`
-writes the bytes of `encode --cpu`, and a missing rank exits 3."""
+writes the bytes of `encode --cpu`, and a missing rank exits 3. The JAX
+CLI's flags: `--engine ref` writes the JAX oracle's bytes, `--log-json`
+emits the JAX stage timer's record, `--profile-trace DIR` writes a trace,
+`-e`/`-d`/`-p` alias encode/decode/play, and a missing file, a malformed
+WAV or `.sela` and a bad value exit 2 with a one-line message."""
+import json
+
 import numpy as np
 import pytest
 
 from sela_tpu import cli as jax_cli
+from sela_tpu.ref import codec as jax_ref_codec
+from sela_tpu.ref.wav import WavData as JaxWavData
+from sela_tpu.utils.metrics import Metrics as JaxMetrics
 from sela_tpu_torch.cli import main
 from sela_tpu_torch.codec.encoder import encode_wav
 from sela_tpu_torch.ref.wav import WavData, read_wav, write_wav
@@ -122,3 +131,107 @@ def test_merge_shards_with_a_missing_rank_exits_3(tmp_path, rng,
     assert main(["merge-shards", shards, str(out), "--n-hosts", "3"]) == 3
     assert "missing shards [1]" in capsys.readouterr().err
     assert not out.exists()
+
+
+@pytest.fixture
+def wav_file(tmp_path, rng, signal_factory):
+    n = 2048 * 2 + 300
+    w = WavData(44100, 16, [signal_factory(rng, n, kind="ar"),
+                            signal_factory(rng, n, kind="tone")])
+    path = tmp_path / "in.wav"
+    write_wav(str(path), w)
+    return w, path
+
+
+def test_engine_ref_writes_the_jax_oracles_bytes(wav_file, tmp_path, capsys):
+    w, wav = wav_file
+    out, back = tmp_path / "ref.sela", tmp_path / "back.wav"
+    assert main(["encode", str(wav), str(out), "--engine", "ref",
+                 "--tag", "k=v"]) == 0
+    want = jax_ref_codec.encode_wav(JaxWavData(w.sample_rate,
+                                               w.bits_per_sample, w.channels),
+                                    tags={"k": "v"})
+    assert out.read_bytes() == want
+    assert main(["decode", str(out), str(back), "--engine", "ref"]) == 0
+    assert main(["verify", str(wav), "--engine", "ref"]) == 0
+    text = capsys.readouterr().out
+    assert "engine=ref" in text and "BIT-EXACT" in text
+    for a, b in zip(read_wav(str(back)).channels, w.channels):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("op", ["encode", "decode"])
+def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
+                                                    capsys):
+    """One JSON line on stderr whose top-level keys are those of the JAX
+    package's Metrics.snapshot given the same counters and stages."""
+    _, wav = wav_file
+    sela = tmp_path / "in.sela"
+    assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
+    src = wav if op == "encode" else sela
+    capsys.readouterr()
+    assert main([op, str(src), str(tmp_path / f"o.{op}"), "--cpu",
+                 "--log-json"]) == 0
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("{")]
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["op"] == op and rec["frames"] == 3
+    stages = {k[:-2] for k in rec if k.endswith("_s") and k != "mb_per_s"}
+    assert stages == ({"host_frame", "device_dispatch", "device_fetch",
+                       "host_pack"} if op == "encode" else
+                      {"host_parse", "host_unpack", "device_fetch"})
+    m = JaxMetrics()
+    for k in ("frames", "pcm_bytes", "coded_bytes"):
+        m.count(k, rec[k])
+    for name in stages:
+        m.stage_s[name] = rec[f"{name}_s"]
+        m.stage_n[name] = 1
+    assert set(rec) == set(m.snapshot(op))
+
+
+@pytest.mark.parametrize("op", ["encode", "decode"])
+def test_profile_trace_writes_a_trace(op, wav_file, tmp_path):
+    _, wav = wav_file
+    sela = tmp_path / "in.sela"
+    assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
+    src = wav if op == "encode" else sela
+    trace_dir = tmp_path / "trace"
+    assert main([op, str(src), str(tmp_path / "out"), "--cpu",
+                 "--profile-trace", str(trace_dir)]) == 0
+    files = list(trace_dir.glob("*.json"))
+    assert len(files) == 1
+    assert "traceEvents" in json.loads(files[0].read_text())
+
+
+def test_short_aliases(wav_file, tmp_path, capsys):
+    w, wav = wav_file
+    sela, back = tmp_path / "a.sela", tmp_path / "b.wav"
+    assert main(["-e", str(wav), str(sela), "--cpu"]) == 0
+    assert main(["-d", str(sela), str(back), "--cpu"]) == 0
+    assert main(["-p", str(sela), "--cpu", "--wav-out",
+                 str(tmp_path / "p.wav")]) == 0
+    text = capsys.readouterr().out
+    assert "encoded" in text and "decoded" in text and "streamed" in text
+    for a, b in zip(read_wav(str(back)).channels, w.channels):
+        np.testing.assert_array_equal(a, b)
+
+
+BAD_INPUTS = {
+    "missing wav": (["encode", "{d}/none.wav", "{d}/o.sela"], "file not found"),
+    "missing sela": (["decode", "{d}/none.sela", "{d}/o.wav"], "file not found"),
+    "bad wav": (["encode", "{d}/bad.wav", "{d}/o.sela"], "RIFF"),
+    "bad sela": (["decode", "{d}/bad.wav", "{d}/o.wav"], "error"),
+    "bad value": (["encode", "{d}/in.wav", "{d}/o.sela", "--frame-size",
+                   "5000"], "frame"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_INPUTS))
+def test_bad_input_exits_2_with_one_line(case, wav_file, tmp_path, capsys):
+    (tmp_path / "bad.wav").write_bytes(b"RIFF\x04\x00\x00\x00JUNKJUNK")
+    argv, message = BAD_INPUTS[case]
+    assert main([a.format(d=tmp_path) for a in argv] + ["--cpu"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: ") and len(err.strip().splitlines()) == 1
+    assert message in err

@@ -683,3 +683,42 @@ def test_encode_shard_merge_equals_encode_wav_on_card(dev, tmp_path, n_hosts):
     multihost.merge_shards(str(tmp_path), n_hosts, out)
     with open(out, "rb") as f:
         assert f.read() == encode_wav(w, device="cuda")
+
+
+CHAIN_CASES = [(512, 1 << 16), (512, 1 << 19), (8, 1 << 20), (8, 1 << 23),
+               (1, 0), (1, 1), (1, 1000), (3, 17), (8, 1000)]
+
+
+@pytest.mark.parametrize("rows,steps", CHAIN_CASES)
+def test_int_chain_kernel_matches_plain(dev, rows, steps):
+    """K9 at the roofline tool's four readings and on the edges: one row,
+    T = 0 and 1, a T that is not a multiple of the unroll, INT32_MIN and
+    INT32_MAX inputs; exact."""
+    from sela_tpu_torch.kernels import chain as k_chain
+    from sela_tpu_torch.ops.chain import int_chain, int_chain_reference
+
+    x = np.random.default_rng(rows + steps).integers(
+        -(1 << 31), 1 << 31, (rows, 128), dtype=np.int64).astype(np.int32)
+    x[0, :3] = (-(1 << 31), (1 << 31) - 1, 0)
+    xd = torch.from_numpy(x).to(dev)
+    before = k_chain.launches
+    got = int_chain(xd, steps)
+    assert k_chain.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, int_chain_reference(xd, steps))
+    assert torch.equal(got.cpu(), int_chain_reference(torch.from_numpy(x),
+                                                      steps))
+
+
+def test_int_chain_wrapper_refuses_bad_inputs_on_card(dev):
+    from sela_tpu_torch.ops.chain import int_chain
+
+    ok = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        int_chain(ok.long(), 10)
+    with pytest.raises(ValueError, match="128"):
+        int_chain(torch.zeros((8, 64), dtype=torch.int32, device=dev), 10)
+    with pytest.raises(ValueError, match="steps"):
+        int_chain(ok, -1)
+    with pytest.raises(ValueError, match="contiguous"):
+        int_chain(torch.zeros((128, 8), dtype=torch.int32, device=dev).T, 10)

@@ -42,7 +42,12 @@ ENCODE_MODULES = ("config.py", "codec/encoder.py", "codec/pipeline.py",
                   "ops/rice.py", "native/bitio.py", "cli.py", "bench.py",
                   "codec/corpus.py", "codec/stream.py", "kernels/pack.py",
                   "ops/pack.py", "utils/bitpack.py", "parallel/mesh.py",
-                  "parallel/multihost.py", "parallel/shard_worker.py")
+                  "parallel/multihost.py", "parallel/shard_worker.py",
+                  "ops/chain.py", "kernels/chain.py", "tools/__init__.py",
+                  "tools/_common.py", "tools/roofline.py",
+                  "tools/profile_stages.py", "tools/sweep_kernels.py",
+                  "tools/sweep_ratio.py", "tools/measure_scaling.py",
+                  "tools/check_regression.py")
 
 
 def test_port_sources_import_no_jax():
@@ -180,6 +185,31 @@ def test_parallel_without_device_raises_on_cuda_less_host(tmp_path):
                            "--n-hosts", "1"])
     assert multihost.encode_shard(w, str(tmp_path / "s"), 0, 1,
                                   device="cpu")["n_frames"] == 1
+
+
+TOOL_CALLS = {
+    "roofline": ("roofline", []),
+    "profile_stages": ("profile_stages", ["4", "--only", "transpose_BN"]),
+    "sweep_kernels": ("sweep_kernels", ["4"]),
+    "sweep_ratio": ("sweep_ratio", ["--seconds", "1"]),
+    "measure_scaling": ("measure_scaling", ["--seconds", "1", "--ranks", "2"]),
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOL_CALLS))
+def test_tools_without_cpu_raise_on_cuda_less_host(tool, tmp_path,
+                                                   monkeypatch):
+    """Each timing tool runs on the card unless given --cpu: without a card
+    it raises before it measures or writes anything."""
+    import importlib
+
+    _no_cuda_clip()
+    monkeypatch.chdir(tmp_path)
+    module, argv = TOOL_CALLS[tool]
+    main = importlib.import_module(f"sela_tpu_torch.tools.{module}").main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert os.listdir(tmp_path) == []
 
 
 def test_chip_smoke_fails_without_cuda():
