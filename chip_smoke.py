@@ -150,7 +150,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
              reading); (g) `tools.check_regression` on a bench line of this
              run: against itself it passes, with every ratio grown 20% it
              fails, against another device's name it refuses;
-14. each kernel's share of its bound, the `kernels` JSON line (with each
+14. hostile streams — tests/test_torch_hostile.py's five base clips (16-bit
+             mono, 16-bit stereo with mid/side, a 16-bit v2 burst/quiet clip of
+             two frames, 24-bit stereo tones at LPC order 13, 32-bit mono
+             holding INT32_MIN and INT32_MAX) and the wrapping stream (the mono
+             clip with byte 27 ^= 5, whose samples leave int16), unmutated, and
+             60 seeded mutations of each base clip (1-8 bytes XORed, every
+             third in the first 40 bytes): each through `decode_sela`,
+             `decode_stream` and `decode_files` on the card (one frame a chunk)
+             and on the CPU (in worker processes meanwhile), and through the
+             port's oracle; every path refuses (ContainerError) exactly where
+             the oracle does on both devices, its PCM on the card equals its
+             PCM on the CPU and the oracle's samples (`decode_sela`'s wrapped
+             to int16 on <= 16-bit streams, as both packages narrow them), but
+             where the oracle's reconstruction leaves int32 (its int64
+             history against the port's 32-bit wrap, K7's contract), K1 and
+             the IIR ran, and on the wrapping stream `decode_stream` and
+             `decode_files` give the oracle's int32 samples (-95,390..97,155)
+             and `decode_sela` its int16 narrowing; prints the streams each
+             path accepted and took with the int32 residue wire, the streams
+             exempt from the oracle's samples, and the phase's seconds;
+15. each kernel's share of its bound, the `kernels` JSON line (with each
    kernel's launches on phase 12's sharded path and K9's on phase 13's
    roofline), then the card's name and power limit, then the last line
    `{"ok": true, "device": {...}}`.
@@ -2056,6 +2076,262 @@ def phase_tools(torch, k_chain, k_lpc, k_iir, k_enc, build_dir, nvcc) -> dict:
                 sweep_ratio=sweep, scaling=scaling)
 
 
+# -------------------------------------------------------- hostile streams --
+
+HOSTILE_SEED = 11
+HOSTILE_MUTATIONS = 60    # a clip: 1-8 bytes XORed, every third in bytes 0-40
+HOSTILE_HEADER = 40
+HOSTILE_PATHS = ("decode_sela", "decode_stream", "decode_files")
+HOSTILE_CHUNK_CPU = 8     # the CPU side, the plain versions: one chunk a clip
+HOSTILE_CHUNK_CUDA = 1    # the card: every border of the two-frame clip
+HOSTILE_WORKERS = 6
+WRAP_RANGE = (-95390, 97155)   # the wrapping stream's samples, the oracle's
+
+
+def hostile_clips() -> dict:
+    """tests/test_torch_hostile.py's five base clips, encoded by the port's
+    oracle, and the wrapping stream: the 16-bit mono clip with byte 27 ^= 5,
+    whose first subframe becomes order 0 with k_res 15 and whose samples
+    leave int16."""
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(0)
+    clips = {"mono16": ref_codec.encode_wav(WavData(
+        44100, 16, [rng.integers(-2000, 2000, 700).astype(np.int32)]))}
+    rng = np.random.default_rng(2)
+    left = rng.integers(-2000, 2000, 700).astype(np.int32)
+    right = (left // 2 + rng.integers(-100, 100, 700)).astype(np.int32)
+    clips["stereo16"] = ref_codec.encode_wav(WavData(44100, 16, [left, right]))
+    rng = np.random.default_rng(4)
+    burst = rng.integers(-20000, 20000, 100).astype(np.int32)
+    quiet = rng.integers(-40, 40, 600).astype(np.int32)
+    clips["partitioned16"] = ref_codec.encode_wav(
+        WavData(44100, 16, [np.concatenate([burst, quiet, burst, quiet])]),
+        profile=BitstreamProfile(residue_partition=4))
+    rng = np.random.default_rng(5)
+    t = np.arange(2000)
+    tones = sum(a * np.sin(w * t + i) for i, (a, w) in enumerate(
+        [(1, 0.031), (0.7, 0.077), (0.5, 0.19), (0.4, 0.43), (0.3, 0.9),
+         (0.2, 1.6)]))
+    left = np.round(1.5e6 * tones) + rng.integers(-40, 40, 2000)
+    right = left * 0.6 + rng.integers(-300, 300, 2000)
+    clips["stereo24"] = ref_codec.encode_wav(WavData(96000, 24, [
+        left.astype(np.int32), np.round(right).astype(np.int32)]))
+    rng = np.random.default_rng(6)
+    t = np.arange(700)
+    x = (np.round(1.5e9 * np.sin(0.05 * t))
+         + rng.integers(-1 << 20, 1 << 20, 700)).astype(np.int64)
+    x[100], x[400] = -(1 << 31), (1 << 31) - 1
+    clips["mono32"] = ref_codec.encode_wav(
+        WavData(48000, 32, [x.astype(np.int32)]))
+    wrap = bytearray(clips["mono16"])
+    wrap[27] ^= 5
+    clips["wrap16"] = bytes(wrap)
+    return clips
+
+
+def hostile_corpus(clips: dict) -> list[tuple[str, bytes]]:
+    """Each clip unmutated, then HOSTILE_MUTATIONS seeded mutations of each
+    of the five base clips: 1 to 8 bytes XORed with 1-255, every third
+    mutation inside the first HOSTILE_HEADER bytes (the file, frame and
+    subframe headers of the mono clip)."""
+    rng = np.random.default_rng(HOSTILE_SEED)
+    out = list(clips.items())
+    for name, base in clips.items():
+        if name == "wrap16":
+            continue
+        for j in range(HOSTILE_MUTATIONS):
+            hi = HOSTILE_HEADER if j % 3 == 0 else len(base) - 1
+            buf = bytearray(base)
+            for _ in range(int(rng.integers(1, 9))):
+                buf[int(rng.integers(0, hi + 1))] ^= int(rng.integers(1, 256))
+            out.append((name, bytes(buf)))
+    return out
+
+
+def hostile_path(name: str, buf: bytes, device: str, chunk: int):
+    """buf through one of the port's decode paths on `device`: its channels,
+    or None where the path raised the port's ContainerError (any other
+    exception propagates)."""
+    from sela_tpu_torch.codec import corpus, decoder, stream
+    from sela_tpu_torch.errors import ContainerError
+    from sela_tpu_torch.ref import container
+
+    try:
+        if name == "decode_sela":
+            return decoder.decode_sela(buf, chunk, device=device).channels
+        if name == "decode_files":
+            return corpus.decode_files([buf], chunk, device=device)[0].channels
+        C = container.parse_header(buf).channels
+        blocks = list(stream.decode_stream(buf, chunk, device=device))
+        pcm = np.concatenate(blocks) if blocks else np.zeros((0, C), np.int32)
+        return [pcm[:, c] for c in range(C)]
+    except ContainerError:
+        return None
+
+
+def leaves_int32(buf: bytes) -> bool:
+    """Whether the oracle's reconstruction of a stream it accepts leaves
+    int32, where both packages split from it: an IIR sample (the oracle
+    carries it in its int64 history, the port wraps it to 32 bits, K7's
+    contract), or the rounding step side + (side & 1) of a side sample
+    (int64 in the oracle, int32 in the port)."""
+    from sela_tpu_torch.format import REF_Q, RICE_PARTITION_MARKER, SF_MID
+    from sela_tpu_torch.ref import container, lpc, rice
+
+    lo, hi, half = -(1 << 31), (1 << 31) - 1, 1 << (REF_Q - 1)
+    h = container.parse_header(buf)
+    pos = container.HEADER_SIZE
+    for _ in range(h.num_frames):
+        subframes, _, pos = container.parse_frame(buf, pos, h.channels)
+        mids = {sf.channel for sf in subframes if sf.sftype == SF_MID}
+        for sf in subframes:
+            if sf.k_res == RICE_PARTITION_MARKER:
+                e = rice.decode_partitioned(sf.res_words, sf.n_samples,
+                                            sf.k_res_sub)
+            else:
+                e = rice.decode(sf.res_words, sf.n_samples, sf.k_res)
+            x = e.astype(np.int64)
+            if sf.order:
+                q = rice.decode(sf.coeff_words, sf.order, sf.k_coeff)
+                c = lpc.reflection_to_lpc(
+                    lpc.dequantize_reflection(q)).astype(np.int64)
+                hist = np.zeros(len(c), np.int64)
+                for i in range(len(x)):
+                    x[i] += (int(np.dot(c, hist)) + half) >> REF_Q
+                    if not lo <= x[i] <= hi:
+                        return True
+                    hist[1:] = hist[:-1]
+                    hist[0] = x[i]
+            if sf.channel - 1 in mids and np.any(x == hi):
+                return True
+    return False
+
+
+def hostile_reference(buf: bytes) -> tuple:
+    """A pool worker's share of one buffer: the oracle's channels (None
+    where it refuses the buffer), whether its reconstruction leaves int32,
+    and the three paths on the CPU."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sela_tpu_torch.errors import ContainerError
+    from sela_tpu_torch.ref import codec as ref_codec
+
+    try:
+        oracle = ref_codec.decode_sela(buf).channels
+    except ContainerError:
+        oracle = None
+    leaves = oracle is not None and leaves_int32(buf)
+    return oracle, leaves, {p: hostile_path(p, buf, "cpu", HOSTILE_CHUNK_CPU)
+                            for p in HOSTILE_PATHS}
+
+
+def same_channels(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
+    """Phase 14: the card's three decode paths against their CPU versions and
+    the oracle on a seeded corpus of mutated streams."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    log("== phase 14: hostile streams, the card's decode paths against their "
+        "CPU versions and the oracle")
+    t_phase = time.perf_counter()
+    clips = hostile_clips()
+    bufs = hostile_corpus(clips)
+    pool = ProcessPoolExecutor(HOSTILE_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    with pool:   # the CPU side in worker processes while the card runs
+        refs = [pool.submit(hostile_reference, buf) for _, buf in bufs]
+        # the residue wire each path took: unpack's fits16, recorded per path
+        real_unpack, fits = decoder.unpack, []
+
+        def unpack(*args):
+            out = real_unpack(*args)
+            fits.append(out[3])
+            return out
+
+        mods = (decoder, stream, corpus)
+        for mod in mods:
+            mod.unpack = unpack
+        k_lpc.launches = k_iir.launches = 0
+        card, wire32 = [], dict.fromkeys(HOSTILE_PATHS, 0)
+        try:
+            for _, buf in bufs:
+                got = {}
+                for p in HOSTILE_PATHS:
+                    fits.clear()
+                    got[p] = hostile_path(p, buf, "cuda", HOSTILE_CHUNK_CUDA)
+                    wire32[p] += got[p] is not None and not all(fits)
+                card.append(got)
+        finally:
+            for mod in mods:
+                mod.unpack = real_unpack
+        launches = {"lpc": k_lpc.launches, "iir": k_iir.launches}
+        t_card = time.perf_counter() - t_phase
+        refs = [r.result() for r in refs]
+
+    accepted = dict.fromkeys(HOSTILE_PATHS, 0)
+    oracle_accepts, split = 0, {}
+    for (name, buf), got, (oracle, leaves, cpu) in zip(bufs, card, refs):
+        oracle_accepts += oracle is not None
+        if leaves:
+            split[name] = split.get(name, 0) + 1
+        elif oracle is not None:   # the oracle's samples, as each path has them
+            want = dict.fromkeys(HOSTILE_PATHS, oracle)
+            if container.parse_header(buf).bits_per_sample <= 16:
+                want["decode_sela"] = [
+                    c.astype(np.int16).astype(np.int32) for c in oracle]
+        for p in HOSTILE_PATHS:
+            verdicts = (got[p] is None, cpu[p] is None, oracle is None)
+            check(len(set(verdicts)) == 1,
+                  f"hostile {name}: {p} refused on the card / on the CPU / by "
+                  f"the oracle: {verdicts}")
+            if got[p] is not None:
+                accepted[p] += 1
+                check(same_channels(got[p], cpu[p]),
+                      f"hostile {name}: {p}'s PCM on the card differs from "
+                      f"its PCM on the CPU")
+                check(leaves or same_channels(got[p], want[p]),
+                      f"hostile {name}: {p}'s PCM on the card differs from "
+                      f"the oracle's")
+    check(launches["lpc"] > 0 and launches["iir"] > 0,
+          f"hostile streams: K1 or the IIR was not launched {launches}")
+    i_wrap = list(clips).index("wrap16")
+    wrap, want = card[i_wrap], refs[i_wrap][0][0]
+    check(not refs[i_wrap][1], "the wrapping stream leaves int32")
+    rng_ok = (int(want.min()), int(want.max())) == WRAP_RANGE
+    for p in ("decode_stream", "decode_files"):
+        check(rng_ok and wrap[p] is not None
+              and same_channels(wrap[p], [want]),
+              f"the wrapping stream: {p} on the card does not give the "
+              f"oracle's int32 samples {WRAP_RANGE}")
+    narrowed = want.astype(np.int16).astype(np.int32)
+    check(same_channels(wrap["decode_sela"], [narrowed]),
+          "the wrapping stream: decode_sela on the card does not narrow to "
+          "int16 as both packages do")
+    secs = time.perf_counter() - t_phase
+    log(f"{len(bufs)} streams ({len(clips)} unmutated, "
+        f"{HOSTILE_MUTATIONS} mutations of each of the 5 base clips), oracle "
+        f"accepts {oracle_accepts}; accepted on the card and on the CPU: "
+        + ", ".join(f"{p} {accepted[p]}" for p in HOSTILE_PATHS)
+        + "; with the int32 residue wire (fits16 false): "
+        + ", ".join(f"{p} {wire32[p]}" for p in HOSTILE_PATHS)
+        + f"; equal to the oracle's samples but {sum(split.values())} whose "
+        f"reconstruction leaves int32 {split}; "
+        f"launches {launches}; the wrapping stream on the card: "
+        f"decode_stream and decode_files {WRAP_RANGE[0]}..{WRAP_RANGE[1]} as "
+        f"the oracle, decode_sela {int(np.count_nonzero(narrowed != want))} "
+        f"samples narrowed as both packages narrow them; card side "
+        f"{t_card:.1f} s, phase {secs:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2070,7 +2346,7 @@ def main(argv: list[str]) -> int:
     check(pkg == os.path.join(HERE, "sela_tpu_torch"),
           f"sela_tpu_torch imported from {pkg}, not from this checkout")
     from sela_tpu_torch import bench
-    from sela_tpu_torch.codec import decoder, encoder, pipeline, stream
+    from sela_tpu_torch.codec import corpus, decoder, encoder, pipeline, stream
     from sela_tpu_torch.config import BitstreamProfile
     from sela_tpu_torch.kernels import chain as k_chain
     from sela_tpu_torch.kernels import coeffs as k_lpc
@@ -2189,8 +2465,9 @@ def main(argv: list[str]) -> int:
     sharded = par["sharded"]
     tools = phase_tools(torch, k_chain, k_lpc, k_iir, k_enc, BUILD_DIR, nvcc)
     k9 = tools["k9"]
+    phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir)
 
-    log("== phase 14: summary")
+    log("== phase 15: summary")
 
     def entry(name, source, replaces, res, launches, library_ms=None,
               launches_by_path=None, **extra):

@@ -5,7 +5,11 @@ group (same channel count, same <=24-bit class: the same mid/side rule) are
 concatenated along the frame axis and run through the same encode_step /
 decode_step chunks, so small files share device batches instead of paying
 for a launch sequence each. Each file's stream is byte-identical to its own
-encode_wav stream, and each decoded file to its own decode_sela.
+encode_wav stream. decode_files returns int32 PCM at every bit depth, as
+sela_tpu's does, so each decoded file equals the oracle's (but where a
+reconstruction leaves int32: both packages wrap it to 32 bits) and, wherever
+its samples fit its declared bit depth, its own decode_sela (which narrows
+<=16-bit output to int16 in both packages).
 """
 from __future__ import annotations
 
@@ -106,16 +110,14 @@ def decode_files(bufs: list[bytes], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
         # before the scatter
         sf = merge_scans([parsed[i][1] for i in idxs], C)
         rows, qrows, erows, fits16 = unpack(sf, 0, F_all * C, C)
-        # int16 wire for the residue upload when the whole group fits; int16
-        # PCM back only when every file of the group is <= 16-bit
+        # int16 wire for the residue upload when the whole group fits; the
+        # PCM comes back int32, as sela_tpu's decode_files returns it
         residues = np.zeros((F_all * C, S), np.int16 if fits16 else np.int32)
         qcoeffs = np.zeros((F_all * C, MAX_ORDER), np.int32)
         order = np.zeros(F_all * C, np.int32)
         sftype = np.zeros(F_all * C, np.int32)
         residues[rows], qcoeffs[rows] = erows, qrows
         order[rows], sftype[rows] = sf["order"], sf["sftype"]
-        out16 = all(parsed[i][0].bits_per_sample <= 16 for i in idxs)
-        out_dtype = torch.int16 if out16 else torch.int32
 
         pcm = np.zeros((F_all, C, S), np.int32)
         for lo in range(0, F_all, chunk_frames):
@@ -127,7 +129,7 @@ def decode_files(bufs: list[bytes], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
 
             pcm[lo:hi] = decode_step(
                 put(residues, S), put(qcoeffs, MAX_ORDER), put(order),
-                put(sftype), out_dtype=out_dtype).cpu().numpy()
+                put(sftype)).cpu().numpy()
 
         pos = 0
         for i in idxs:

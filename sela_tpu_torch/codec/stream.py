@@ -32,18 +32,22 @@ def decode_stream(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     """Yield PCM blocks [n, C] int32 in stream order, one a frame, decoding
     `chunk_frames` frames at a time on `device` (default: the CUDA card).
 
-    The blocks, concatenated, equal decode_sela(buf)'s channels. Damage
-    raises ContainerError when the chunk that holds it is reached: every
-    block yielded before it is valid. The trailer is parsed after the last
-    frame. device="cpu" runs the plain PyTorch versions of the kernels; with
-    no device named and no CUDA available this raises.
+    The blocks, concatenated, are int32 at every bit depth, as sela_tpu's
+    decode_stream gives them: the oracle's channels (ref.codec), but where a
+    reconstruction leaves int32 (both packages wrap it to 32 bits). They
+    equal decode_sela(buf)'s channels wherever the samples fit the declared
+    bit depth; decode_sela narrows <=16-bit output to int16 (in both
+    packages), so on a stream whose samples leave int16 the two differ.
+    Damage raises ContainerError when the chunk that holds it is reached:
+    every block yielded before it is valid. The trailer is parsed after the
+    last frame. device="cpu" runs the plain PyTorch versions of the kernels;
+    with no device named and no CUDA available this raises.
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
     dev = resolve_device(device)
     header = container.parse_header(buf)
     C, F, S = header.channels, header.num_frames, FRAME_SIZE
-    out_dtype = torch.int16 if header.bits_per_sample <= 16 else torch.int32
     pos = container.HEADER_SIZE
     for start in range(0, F, chunk_frames):
         n = min(chunk_frames, F - start)
@@ -60,8 +64,7 @@ def decode_stream(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
             return torch.from_numpy(a).view(*shape).to(dev)
 
         x = decode_step(put(res, n, C, S), put(qcoeffs, n, C, MAX_ORDER),
-                        put(order, n, C), put(sftype, n, C),
-                        out_dtype=out_dtype).cpu().numpy()
+                        put(order, n, C), put(sftype, n, C)).cpu().numpy()
         for f, nv in enumerate(sf["n_samples"]):
             yield x[f, :, :nv].T.astype(np.int32)
     container.parse_trailer(buf, pos)  # metadata passthrough; junk raises

@@ -73,6 +73,25 @@ def test_batch_streams_decode_through_jax_and_oracle(rng, signal_factory):
             np.testing.assert_array_equal(a, b)
 
 
+def test_decode_files_keeps_16bit_samples_that_leave_int16():
+    """decode_files returns int32 at every bit depth, as sela_tpu's does:
+    tests/test_property.py's mono clip with byte 27 ^= 5 (its first subframe
+    becomes order 0 with k_res 15) decodes to the oracle's samples,
+    -95,390..97,155, none wrapped to int16."""
+    rng = np.random.default_rng(0)
+    w = WavData(44100, 16, [rng.integers(-2000, 2000, 700).astype(np.int32)])
+    buf = bytearray(jax_ref_codec.encode_wav(w))
+    buf[27] ^= 5
+    buf = bytes(buf)
+    want = jax_ref_codec.decode_sela(buf).channels[0]
+    assert (want.min(), want.max()) == (-95390, 97155)
+    got = corpus.decode_files([buf], chunk_frames=CHUNK, device="cpu")[0]
+    ref = jax_corpus.decode_files([buf], chunk_frames=CHUNK)[0]
+    assert got.channels[0].dtype == ref.channels[0].dtype == np.int32
+    np.testing.assert_array_equal(got.channels[0], ref.channels[0])
+    np.testing.assert_array_equal(got.channels[0], want)
+
+
 def _damaged(buf: bytes) -> list[bytes]:
     """A flipped frame sync, a truncation mid-frame, trailing junk, and an
     out-of-range quantized coefficient (q = 127 in the first coefficient

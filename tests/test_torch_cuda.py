@@ -625,6 +625,34 @@ def test_stream_decode_on_card(dev):
         np.testing.assert_array_equal(played[:, c], rows[c])
 
 
+def test_wrapping_stream_decodes_to_the_oracle_on_card(dev):
+    """The 16-bit mono clip of tests/test_property.py with byte 27 ^= 5: its
+    first subframe becomes order 0 with k_res 15 and its samples leave int16.
+    decode_stream and decode_files give the oracle's int32 samples on the
+    card, as on the CPU."""
+    from sela_tpu_torch.codec.corpus import decode_files
+    from sela_tpu_torch.codec.stream import decode_stream
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(0)
+    buf = bytearray(ref_codec.encode_wav(WavData(
+        44100, 16, [rng.integers(-2000, 2000, 700).astype(np.int32)])))
+    buf[27] ^= 5
+    buf = bytes(buf)
+    want = ref_codec.decode_sela(buf).channels[0]
+    assert (want.min(), want.max()) == (-95390, 97155)
+    k_lpc.launches = k_iir.launches = 0
+    for device in ("cuda", "cpu"):
+        blocks = list(decode_stream(buf, chunk_frames=1, device=device))
+        for got in (np.concatenate(blocks)[:, 0],
+                    decode_files([buf], chunk_frames=1,
+                                 device=device)[0].channels[0]):
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+    assert k_lpc.launches == k_iir.launches == 2   # one each a card path
+
+
 def _frames(rng, F: int, C: int, S: int = 2048, bits: int = 16):
     """[F, C, S] int32 frames of _audio channels, the last one a tail."""
     rows = _audio(rng, C, F * S, bits=bits)

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 
 from sela_tpu.codec.stream import decode_stream as jax_decode_stream
+from sela_tpu.ref import codec as jax_ref_codec
+from sela_tpu.ref.wav import WavData as JaxWavData
 from sela_tpu_torch.codec.decoder import decode_sela
 from sela_tpu_torch.codec.encoder import encode_wav
 from sela_tpu_torch.codec.stream import (PacketQueue, StreamingPlayer,
@@ -40,6 +42,30 @@ def test_decode_stream_matches_full_decode_and_jax(rng, signal_factory, bits):
     for c in range(2):
         np.testing.assert_array_equal(pcm[:, c], full.channels[c])
         np.testing.assert_array_equal(pcm[:, c], w.channels[c])
+
+
+def _wrapping_stream() -> bytes:
+    """tests/test_property.py's mono clip with byte 27 ^= 5: a structurally
+    valid stream whose first subframe becomes order 0 with k_res 15, so its
+    samples leave int16 (-95,390..97,155)."""
+    rng = np.random.default_rng(0)
+    w = JaxWavData(44100, 16, [rng.integers(-2000, 2000, 700).astype(np.int32)])
+    buf = bytearray(jax_ref_codec.encode_wav(w))
+    buf[27] ^= 5
+    return bytes(buf)
+
+
+def test_decode_stream_keeps_16bit_samples_that_leave_int16():
+    """decode_stream returns int32 at every bit depth, as sela_tpu's does:
+    on this stream the oracle's samples, none wrapped to int16."""
+    buf = _wrapping_stream()
+    want = jax_ref_codec.decode_sela(buf).channels[0]
+    assert (want.min(), want.max()) == (-95390, 97155)
+    got = np.concatenate(list(decode_stream(buf, chunk_frames=3, device="cpu")))
+    ref = np.concatenate(list(jax_decode_stream(buf, chunk_frames=8)))
+    assert got.dtype == ref.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[:, 0], want)
 
 
 def test_decode_stream_raises_midstream_on_corruption(rng, signal_factory):
