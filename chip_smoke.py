@@ -151,25 +151,40 @@ Phases, in order; any failure exits non-zero and prints no result line:
              run: against itself it passes, with every ratio grown 20% it
              fails, against another device's name it refuses;
 14. hostile streams — tests/test_torch_hostile.py's five base clips (16-bit
-             mono, 16-bit stereo with mid/side, a 16-bit v2 burst/quiet clip of
-             two frames, 24-bit stereo tones at LPC order 13, 32-bit mono
-             holding INT32_MIN and INT32_MAX) and the wrapping stream (the mono
-             clip with byte 27 ^= 5, whose samples leave int16), unmutated, and
+             mono, 16-bit stereo with mid/side, a 16-bit v2 burst/quiet
+             clip, 24-bit stereo tones at LPC order 13, 32-bit mono holding
+             INT32_MIN and INT32_MAX) and the wrapping stream (the mono clip
+             with byte 27 ^= 5, whose samples leave int16), unmutated, and
              60 seeded mutations of each base clip (1-8 bytes XORed, every
-             third in the first 40 bytes): each through `decode_sela`,
-             `decode_stream` and `decode_files` on the card (one frame a chunk)
-             and on the CPU (in worker processes meanwhile), and through the
-             port's oracle; every path refuses (ContainerError) exactly where
-             the oracle does on both devices, its PCM on the card equals its
-             PCM on the CPU and the oracle's samples (`decode_sela`'s wrapped
-             to int16 on <= 16-bit streams, as both packages narrow them), but
-             where the oracle's reconstruction leaves int32 (its int64
-             history against the port's 32-bit wrap, K7's contract), K1 and
-             the IIR ran, and on the wrapping stream `decode_stream` and
-             `decode_files` give the oracle's int32 samples (-95,390..97,155)
-             and `decode_sela` its int16 narrowing; prints the streams each
-             path accepted and took with the int32 residue wire, the streams
-             exempt from the oracle's samples, and the phase's seconds;
+             third in the first 40 bytes); then the structure-aware
+             mutations of tests/test_torch_hostile_fields.py (the same
+             functions): the base clips, mono16 and stereo24 with a SeTg and
+             an APEv2 trailer and a 16-bit stereo clip of four frames, with
+             a byte of each field XORed (3 seeded draws a field), each
+             field edited at FORMAT.md's limits, cut at and inside each
+             field, and junk, a second trailer or a word left after the
+             last frame: each through `decode_sela`, `decode_stream` and
+             `decode_files` on the card (one frame a chunk) and on the CPU
+             (in worker processes meanwhile), and through the port's
+             oracle; every path refuses (ContainerError) exactly where the
+             oracle does on both devices, its PCM on the card equals its
+             PCM on the CPU and the oracle's samples (`decode_sela`'s
+             wrapped to int16 on <= 16-bit streams, as both packages narrow
+             them), but where the oracle's reconstruction leaves int32 (its
+             int64 history against the port's 32-bit wrap, K7's contract),
+             K1 and the IIR ran, and on the wrapping stream `decode_stream`
+             and `decode_files` give the oracle's int32 samples
+             (-95,390..97,155) and `decode_sela` its int16 narrowing; on
+             every stream the oracle refuses, the card's `decode_stream`
+             yields the oracle's frames before the one it refuses and then
+             raises ContainerError; every structure-aware stream, put
+             between two valid files of its group in one `decode_files` on
+             the card, is refused before any device step where the oracle
+             refuses it, and otherwise each of the three files equals its
+             one-file decode; prints the streams each path accepted and
+             took with the int32 residue wire, the streams exempt from the
+             oracle's samples, the refusals by field, and the phase's
+             seconds;
 15. each kernel's share of its bound, the `kernels` JSON line (with each
    kernel's launches on phase 12's sharded path and K9's on phase 13's
    roofline), then the card's name and power limit, then the last line
@@ -184,6 +199,7 @@ together exceed it. A kernel's share is its bound over its time.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -2083,7 +2099,7 @@ HOSTILE_MUTATIONS = 60    # a clip: 1-8 bytes XORed, every third in bytes 0-40
 HOSTILE_HEADER = 40
 HOSTILE_PATHS = ("decode_sela", "decode_stream", "decode_files")
 HOSTILE_CHUNK_CPU = 8     # the CPU side, the plain versions: one chunk a clip
-HOSTILE_CHUNK_CUDA = 1    # the card: every border of the two-frame clip
+HOSTILE_CHUNK_CUDA = 1    # the card: every border of the four-frame clip
 HOSTILE_WORKERS = 6
 WRAP_RANGE = (-95390, 97155)   # the wrapping stream's samples, the oracle's
 
@@ -2151,25 +2167,463 @@ def hostile_corpus(clips: dict) -> list[tuple[str, bytes]]:
     return out
 
 
+# The structure-aware mutator: mutations aimed at the fields of a valid
+# stream, read from its parsed layout through the port's copy of the
+# oracle's container code. tests/test_torch_hostile_fields.py imports these
+# functions, so the CPU tests and phase 14 mutate the same way.
+
+FIELD_TAGS = {"TITLE": "Hostile fields", "ARTIST": "sela", "TRACK": "7"}
+FIELD_SEED = 13
+FIELD_FLIPS = 3           # seeded aimed flips of each field of each clip
+GROUP_CHUNK = 4           # decode_files' chunk in the group property: the
+                          # three files share a chunk, and a multi-frame file
+                          # crosses a border
+HEADER_FIELDS = ("rate", "bits", "channels", "num_frames")
+FRAME_FIELDS = ("sync", "num_samples", "channel", "type", "order", "k_coeff",
+                "nw_coeff", "coeff_word", "k_res", "k_part", "nw_res",
+                "res_word")
+SETG_FIELDS = ("tag_magic", "tag_bytes", "tag_key_len", "tag_val_len",
+               "tag_key")
+APE_FIELDS = ("ape_preamble", "ape_version", "ape_size", "ape_count",
+              "ape_flags", "ape_reserved", "ape_pair")
+APE_BLOCK = (("ape_preamble", 0, 8), ("ape_version", 8, 4),
+             ("ape_size", 12, 4), ("ape_count", 16, 4), ("ape_flags", 20, 4),
+             ("ape_reserved", 24, 8))
+# (b) field edits, re-serialized so that the scan gets past them, at the
+# limits of FORMAT.md's decoder validation, and (c) the length changes that
+# are not truncations: (field, edits, the base clips that the CPU tests aim
+# them at, which phase 14 aims at every base clip; None: every base clip)
+FIELD_EDITS = (
+    ("order", ("32", "33", "255"), ("mono16", "stereo24", "mono32")),
+    ("k_coeff", ("30", "31", "32", "255"), ("stereo24", "mono32")),
+    ("k_res", ("30", "31", "32", "255"), ("stereo16", "partitioned16",
+                                          "mono32")),
+    ("k_part", ("31", "32"), None),
+    ("coeff", ("63", "64", "-64", "-65"), None),
+    ("num_samples", ("0", "1", "2048", "2049"), ("mono16", "partitioned16",
+                                                 "stereo24")),
+    ("channel", ("duplicate", "out_of_range"), None),
+    ("type", ("3", "mid_at_odd", "side_without_mid", "mid_unpaired"), None),
+    ("subframes", ("permuted",), None),
+    ("nw_res", ("+1", "-1"), ("stereo16", "partitioned16", "mono32")),
+    ("nw_res", ("last_short",), None),
+    ("num_frames", ("+1", "-1"), None),
+    ("trailer", ("junk", "second"), None),
+)
+# the edits of a clip with a tags trailer (its audio is a base clip's) and
+# of the multi-frame clip (the edits that damage a frame, with the one
+# valid reordering)
+TAIL_EDITS = {"nw_res": ("last_short",), "num_frames": ("+1", "-1"),
+              "trailer": ("junk", "second")}
+MULTI_EDITS = {"order": ("33",), "k_coeff": ("32",), "coeff": ("64",),
+               "num_samples": ("2049",), "channel": ("duplicate",),
+               "type": ("3",), "subframes": ("permuted",),
+               "nw_res": ("last_short",)}
+MULTI_TRUNCATIONS = ("sync", "order", "coeff_word", "nw_res")
+
+
+def field_clips(clips: dict) -> dict:
+    """The mutator's base clips: hostile_clips' five base clips; mono16 and
+    stereo24 each with a SeTg and an APEv2 tags trailer (FORMAT.md §Tags);
+    and multi16, 16-bit stereo tones under noise in four frames of at most
+    256 samples, with LPC orders above 0 and mid/side pairs, for the
+    chunking properties."""
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref import container
+    from sela_tpu_torch.ref.wav import WavData
+
+    out = {name: clips[name] for name in
+           ("mono16", "stereo16", "partitioned16", "stereo24", "mono32")}
+    for name in ("mono16", "stereo24"):
+        for fmt in ("setg", "apev2"):
+            out[f"{name}_{fmt}"] = container.replace_tags(clips[name],
+                                                          FIELD_TAGS, fmt)
+    rng = np.random.default_rng(7)
+    t = np.arange(1000)
+    left = (np.round(9000 * np.sin(0.07 * t) + 4000 * np.sin(0.31 * t + 1))
+            + rng.integers(-60, 60, 1000))
+    right = np.round(0.8 * left) + rng.integers(-200, 200, 1000)
+    out["multi16"] = ref_codec.encode_wav(
+        WavData(44100, 16, [left.astype(np.int32), right.astype(np.int32)]),
+        profile=BitstreamProfile(frame_size=256))
+    return out
+
+
+def stream_fields(buf: bytes) -> dict:
+    """The fields of a stream the oracle accepts (FORMAT.md's layout and its
+    tags trailers): {field: [(frame, spans), ...]}, one entry an instance.
+    frame is the frame's index, -1 in the file header and the frame count
+    in the trailer; spans are (offset, length) pairs of one length, two
+    for ape_pair (one field of the APEv2 header and of its footer)."""
+    from sela_tpu_torch.format import (
+        RESIDUE_PARTS, RICE_PARTITION_MARKER, TAG_MAGIC)
+    from sela_tpu_torch.ref import container
+
+    fields: dict = {}
+
+    def add(name, frame, *spans):
+        fields.setdefault(name, []).append((frame, spans))
+
+    for name, off, n in zip(HEADER_FIELDS, (4, 8, 10, 11), (4, 2, 1, 4)):
+        add(name, -1, (off, n))
+    h = container.parse_header(buf)
+    pos = container.HEADER_SIZE
+    for f in range(h.num_frames):
+        add("sync", f, (pos, 4))
+        add("num_samples", f, (pos + 4, 2))
+        ns = int.from_bytes(buf[pos + 4 : pos + 6], "little")
+        pos += 6
+        for _ in range(h.channels):
+            sf, end = container.parse_subframe(buf, pos, ns)
+            for i, name in enumerate(("channel", "type", "order", "k_coeff")):
+                add(name, f, (pos + i, 1))
+            add("nw_coeff", f, (pos + 4, 2))
+            pos += 6
+            for i in range(len(sf.coeff_words)):
+                add("coeff_word", f, (pos + 4 * i, 4))
+            pos += 4 * len(sf.coeff_words)
+            add("k_res", f, (pos, 1))
+            if sf.k_res == RICE_PARTITION_MARKER:
+                for i in range(RESIDUE_PARTS):
+                    add("k_part", f, (pos + 1 + i, 1))
+                pos += RESIDUE_PARTS
+            add("nw_res", f, (pos + 1, 4))
+            pos += 5
+            for i in range(len(sf.res_words)):
+                add("res_word", f, (pos + 4 * i, 4))
+            pos = end
+    F = h.num_frames
+    if buf[pos : pos + 4] == TAG_MAGIC:
+        add("tag_magic", F, (pos, 4))
+        add("tag_bytes", F, (pos + 4, 4))
+        p = pos + 8
+        while p < len(buf):
+            klen = int.from_bytes(buf[p : p + 2], "little")
+            vlen = int.from_bytes(buf[p + 2 : p + 6], "little")
+            add("tag_key_len", F, (p, 2))
+            add("tag_val_len", F, (p + 2, 4))
+            add("tag_key", F, (p + 6, klen))
+            p += 6 + klen + vlen
+    elif pos < len(buf):   # APEv2: a header block, the items, a footer
+        foot = len(buf) - 32
+        for name, rel, n in APE_BLOCK:
+            add(name, F, (pos + rel, n))
+            add(name, F, (foot + rel, n))
+            add("ape_pair", F, (pos + rel, n), (foot + rel, n))
+    return fields
+
+
+def aimed_flip(buf: bytes, fields: dict, name: str, pick) -> bytes:
+    """(a) An instance of field `name`, a byte inside it, XORed with 1-255
+    (the same byte in each span of the instance). pick(n) draws an index
+    below n: hypothesis' draws in the tests, a seeded rng on the card."""
+    _, spans = fields[name][pick(len(fields[name]))]
+    i, x = pick(spans[0][1]), 1 + pick(255)
+    out = bytearray(buf)
+    for off, _ in spans:
+        out[off + i] ^= x
+    return bytes(out)
+
+
+def _parse_stream(buf: bytes):
+    from sela_tpu_torch.ref import container
+
+    h = container.parse_header(buf)
+    pos, frames = container.HEADER_SIZE, []
+    for _ in range(h.num_frames):
+        subframes, ns, pos = container.parse_frame(buf, pos, h.channels)
+        frames.append([subframes, ns])
+    return h, frames, bytes(buf[pos:])
+
+
+def field_edit(buf: bytes, field: str, edit: str) -> bytes | None:
+    """(b) and (c): buf, a stream the oracle accepts, with one field edited
+    and re-serialized by the port's container code (a quantized coefficient
+    re-Rice-encoded with its k and nWordsCoeff, so that only the range
+    check can refuse it), or with its length changed; None where the edit
+    does not apply to the stream. The edited subframe is in frame (F - 1)
+    // 2, the last of its subframes with an LPC order above 0 (or its last
+    subframe)."""
+    from sela_tpu_torch.format import (
+        RESIDUE_PARTS, RICE_PARTITION_MARKER, SF_DIRECT, SF_MID, SF_SIDE)
+    from sela_tpu_torch.ref import container, rice
+
+    h, frames, tail = _parse_stream(buf)
+    C = h.channels
+    subframes = frames[(len(frames) - 1) // 2][0]
+    sf = ([s for s in subframes if s.order] or subframes)[-1]
+    by_channel = {s.channel: s for s in subframes}
+    value = int(edit) if edit.lstrip("+-").isdigit() else None
+    if field == "order":
+        sf.order = value
+    elif field == "k_coeff":
+        sf.k_coeff = value
+    elif field == "k_res":
+        if sf.k_res == value:
+            return None
+        if value == RICE_PARTITION_MARKER:   # the same k for every part
+            sf.k_res_sub = [sf.k_res] * RESIDUE_PARTS
+        sf.k_res = value
+    elif field == "k_part":
+        if sf.k_res != RICE_PARTITION_MARKER:
+            return None
+        sf.k_res_sub = [*sf.k_res_sub[:-1], value]
+    elif field == "coeff":
+        if not sf.order:
+            return None
+        q = rice.decode(sf.coeff_words, sf.order, sf.k_coeff)
+        q[-1] = value
+        sf.k_coeff, sf.coeff_words = rice.encode(q)
+    elif field == "num_samples":
+        frames[(len(frames) - 1) // 2][1] = value
+    elif field == "channel":
+        if edit == "out_of_range":
+            sf.channel = C
+        elif C < 2:
+            return None
+        else:
+            subframes[-1].channel = subframes[0].channel
+    elif field == "type":
+        if edit == "3":
+            sf.sftype = 3
+        elif edit == "mid_unpaired":
+            if C % 2 == 0:
+                return None
+            by_channel[C - 1].sftype = SF_MID
+        else:
+            if C < 2:
+                return None
+            by_channel[0].sftype = SF_DIRECT
+            by_channel[1].sftype = (SF_MID if edit == "mid_at_odd"
+                                    else SF_SIDE)
+    elif field == "subframes":   # FORMAT.md: any order within a frame
+        if C < 2:
+            return None
+        subframes.reverse()
+    elif field == "nw_res":
+        if edit == "+1":
+            sf.res_words = np.append(sf.res_words, np.uint32(0x5A5A5A5A))
+        elif edit == "-1":
+            sf.res_words = sf.res_words[:-1]
+        else:   # last_short: the count one word short, the word left behind
+            last = frames[-1][0][-1]
+            if not len(last.res_words):
+                return None
+            tail = last.res_words[-1:].astype("<u4").tobytes() + tail
+            last.res_words = last.res_words[:-1]
+    elif field == "num_frames":
+        h.num_frames += value
+    elif field == "trailer":
+        if edit == "second" and not tail:
+            return None
+        tail += tail if edit == "second" else b"JUNK\x00\xff"
+    else:
+        raise ValueError(f"no field edit {field} {edit}")
+    return container.serialize_file(h, [
+        container.serialize_frame(s, ns) for s, ns in frames]) + tail
+
+
+def field_truncation(buf: bytes, fields: dict, field: str,
+                     inside: bool) -> bytes | None:
+    """(c) buf cut at the start of `field` (its first instance in frame
+    (F - 1) // 2, else its first instance), or inside it, at its middle
+    byte; None for a one-byte field cut inside, or a field buf lacks."""
+    if field not in fields:
+        return None
+    target = (fields["sync"][-1][0] // 2) if "sync" in fields else 0
+    spans = next((sp for f, sp in fields[field] if f == target),
+                 fields[field][0][1])
+    off, n = spans[0]
+    if inside and n < 2:
+        return None
+    return buf[: off + (n // 2 if inside else 0)]
+
+
+def field_cases(clips: dict, every_clip: bool = False
+                ) -> list[tuple[str, str, str]]:
+    """The deterministic mutations of each field clip, as (clip, field,
+    edit): the edits of FIELD_EDITS that apply to a base clip and are aimed
+    at it (every_clip: all that apply), the tail edits of a tagged clip and
+    MULTI_EDITS on the multi-frame clip; then truncations (edit
+    "truncate_at" or "truncate_inside") at each field of the file header
+    and the edited frame (the multi-frame clip: MULTI_TRUNCATIONS, at the
+    field's start) and of the tags trailer."""
+    cases = []
+    for name, buf in clips.items():
+        tagged = name.endswith(("_setg", "_apev2"))
+        scope = (TAIL_EDITS if tagged else MULTI_EDITS
+                 if name == "multi16" else None)
+        for field, edits, aimed in FIELD_EDITS:
+            for edit in edits:
+                if scope is not None:
+                    if edit not in scope.get(field, ()):
+                        continue
+                elif not (every_clip or aimed is None or name in aimed):
+                    continue
+                if field_edit(buf, field, edit) is not None:
+                    cases.append((name, field, edit))
+        fields = stream_fields(buf)
+        if tagged:
+            names = SETG_FIELDS if name.endswith("_setg") else APE_FIELDS[:-1]
+        elif name == "multi16":
+            names = MULTI_TRUNCATIONS
+        else:
+            names = HEADER_FIELDS + FRAME_FIELDS
+        for field in names:
+            for edit in ("at", "inside"):
+                if edit == "inside" and name == "multi16":
+                    continue
+                if field_truncation(buf, fields, field,
+                                    edit == "inside") is not None:
+                    cases.append((name, field, f"truncate_{edit}"))
+    return cases
+
+
+def field_case(clips: dict, case: tuple[str, str, str]) -> bytes:
+    name, field, edit = case
+    buf = clips[name]
+    if edit.startswith("truncate_"):
+        return field_truncation(buf, stream_fields(buf), field,
+                                edit == "truncate_inside")
+    return field_edit(buf, field, edit)
+
+
+def oracle_frames(buf: bytes) -> tuple[list, bool]:
+    """The oracle's walk of buf as its decode_sela takes it: each frame it
+    decodes before it accepts or refuses the stream, as ((start, end) bytes,
+    PCM channels), and whether it accepts."""
+    from sela_tpu_torch.errors import ContainerError
+    from sela_tpu_torch.ref import container, frame
+
+    walked = []
+    try:
+        h = container.parse_header(buf)
+        pos = container.HEADER_SIZE
+        for _ in range(h.num_frames):
+            subframes, _, end = container.parse_frame(buf, pos, h.channels)
+            walked.append(((pos, end), frame.decode_frame(subframes,
+                                                          h.channels)))
+            pos = end
+        container.parse_trailer(buf, pos)
+    except ContainerError:
+        return walked, False
+    return walked, True
+
+
+@functools.lru_cache(maxsize=16)
+def base_frames(base: bytes) -> tuple[list, bool]:
+    """oracle_frames of a base clip, walked once a process."""
+    return oracle_frames(base)
+
+
+def prefix_reference(buf: bytes, base: bytes) -> list | None:
+    """What decode_stream(buf, 1) must yield before it raises, where the
+    oracle refuses buf (None where it accepts): the oracle's frames before
+    the one it refuses, each as an [n, C] int32 block; a frame whose bytes
+    are the base clip's frame's as that frame's oracle PCM, a changed frame
+    as the oracle's PCM of it, or None where its reconstruction leaves
+    int32 (the split that test_torch_hostile.py pins)."""
+    from sela_tpu_torch.ref import container
+
+    walked, accepted = oracle_frames(buf)
+    if accepted:
+        return None
+    base_walked, _ = base_frames(base)
+    want = []
+    for f, ((s, e), pcm) in enumerate(walked):
+        if f < len(base_walked) and buf[s:e] == base[slice(
+                *base_walked[f][0])]:
+            pcm = base_walked[f][1]
+        else:   # the frame alone, as a stream of one frame
+            h = container.parse_header(buf)
+            h.num_frames = 1
+            if leaves_int32(container.serialize_file(h, [buf[s:e]])):
+                want.append(None)
+                continue
+        want.append(np.stack(pcm, axis=1).astype(np.int32))
+    return want
+
+
+def stream_blocks(buf: bytes, device: str, chunk: int) -> tuple:
+    """decode_stream(buf, chunk) on `device`, block by block: the blocks it
+    yielded, and what it raised (None where it ran to its end)."""
+    from sela_tpu_torch.codec import stream
+
+    blocks = []
+    try:
+        for block in stream.decode_stream(buf, chunk, device=device):
+            blocks.append(block)
+    except Exception as e:   # the stream-prefix property judges it
+        return blocks, e
+    return blocks, None
+
+
+def stream_prefix_fault(want: list, blocks: list, error) -> str | None:
+    """The stream-prefix property of a stream the oracle refuses: `blocks`
+    and `error`, what decode_stream(buf, 1) yielded and raised, against
+    prefix_reference's `want`. Returns what is wrong, or None."""
+    from sela_tpu_torch.errors import ContainerError
+
+    if not isinstance(error, ContainerError):
+        return f"raised {error!r}, not the port's ContainerError"
+    if len(blocks) != len(want):
+        return (f"{len(blocks)} blocks before the error, where the oracle "
+                f"decodes {len(want)} frames before it refuses")
+    for f, (block, w) in enumerate(zip(blocks, want)):
+        if w is not None and (block.dtype != np.int32
+                              or not np.array_equal(block, w)):
+            return f"block {f} differs from the oracle's PCM of its frame"
+    return None
+
+
+def group_partners(channels: int, wide: bool) -> tuple[bytes, bytes]:
+    """Two valid files of decode_files' group (channels, > 24-bit), encoded
+    by the port's oracle: 300 and 500 samples of noise, the first 16-bit
+    and the second 24-bit in a <= 24-bit group, both 32-bit in the other."""
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(17)
+    out = []
+    for n, bits in ((300, 32 if wide else 16), (500, 32 if wide else 24)):
+        amp = 1 << (bits - 2)
+        out.append(ref_codec.encode_wav(WavData(44100, bits, [
+            rng.integers(-amp, amp, n).astype(np.int32)
+            for _ in range(channels)])))
+    return out[0], out[1]
+
+
 def hostile_path(name: str, buf: bytes, device: str, chunk: int):
     """buf through one of the port's decode paths on `device`: its channels,
     or None where the path raised the port's ContainerError (any other
     exception propagates)."""
-    from sela_tpu_torch.codec import corpus, decoder, stream
+    from sela_tpu_torch.codec import corpus, decoder
     from sela_tpu_torch.errors import ContainerError
-    from sela_tpu_torch.ref import container
 
+    if name == "decode_stream":
+        return stream_channels(buf, *stream_blocks(buf, device, chunk))
     try:
         if name == "decode_sela":
             return decoder.decode_sela(buf, chunk, device=device).channels
-        if name == "decode_files":
-            return corpus.decode_files([buf], chunk, device=device)[0].channels
-        C = container.parse_header(buf).channels
-        blocks = list(stream.decode_stream(buf, chunk, device=device))
-        pcm = np.concatenate(blocks) if blocks else np.zeros((0, C), np.int32)
-        return [pcm[:, c] for c in range(C)]
+        return corpus.decode_files([buf], chunk, device=device)[0].channels
     except ContainerError:
         return None
+
+
+def stream_channels(buf: bytes, blocks: list, error):
+    """stream_blocks' blocks as channels, None where decode_stream raised
+    the port's ContainerError (anything else it raised is raised again)."""
+    from sela_tpu_torch.errors import ContainerError
+    from sela_tpu_torch.ref import container
+
+    if isinstance(error, ContainerError):
+        return None
+    if error is not None:
+        raise error
+    C = container.parse_header(buf).channels
+    pcm = np.concatenate(blocks) if blocks else np.zeros((0, C), np.int32)
+    return [pcm[:, c] for c in range(C)]
 
 
 def leaves_int32(buf: bytes) -> bool:
@@ -2210,10 +2664,12 @@ def leaves_int32(buf: bytes) -> bool:
     return False
 
 
-def hostile_reference(buf: bytes) -> tuple:
+def hostile_reference(buf: bytes, base: bytes) -> tuple:
     """A pool worker's share of one buffer: the oracle's channels (None
     where it refuses the buffer), whether its reconstruction leaves int32,
-    and the three paths on the CPU."""
+    the three paths on the CPU, and where the oracle refuses it, what
+    decode_stream(buf, 1) must yield before it raises (prefix_reference,
+    against the clip `base` it was mutated from)."""
     import torch
 
     torch.set_num_threads(1)
@@ -2225,8 +2681,62 @@ def hostile_reference(buf: bytes) -> tuple:
     except ContainerError:
         oracle = None
     leaves = oracle is not None and leaves_int32(buf)
+    prefix = None if oracle is not None else prefix_reference(buf, base)
     return oracle, leaves, {p: hostile_path(p, buf, "cpu", HOSTILE_CHUNK_CPU)
-                            for p in HOSTILE_PATHS}
+                            for p in HOSTILE_PATHS}, prefix
+
+
+def card_group(corpus, container, base: bytes, buf: bytes,
+               partners: dict) -> tuple:
+    """decode_files([A, buf, B], GROUP_CHUNK) on the card, with A and B the
+    group_partners of the base clip's group: the three files' channels
+    (None where it raised the port's ContainerError), the decode_step calls
+    it made, and A's and B's one-file decodes on the card."""
+    from sela_tpu_torch.errors import ContainerError
+
+    h = container.parse_header(base)
+    key = (h.channels, h.bits_per_sample > 24)
+    if key not in partners:
+        a, b = group_partners(*key)
+        partners[key] = a, b, [corpus.decode_files(
+            [x], GROUP_CHUNK, device="cuda")[0].channels for x in (a, b)]
+    a, b, alone = partners[key]
+    real_step, steps = corpus.decode_step, []
+
+    def decode_step(*args, **kwargs):
+        steps.append(1)
+        return real_step(*args, **kwargs)
+
+    corpus.decode_step = decode_step
+    try:
+        files = [w.channels for w in corpus.decode_files(
+            [a, buf, b], GROUP_CHUNK, device="cuda")]
+    except ContainerError:
+        files = None
+    finally:
+        corpus.decode_step = real_step
+    return files, len(steps), alone
+
+
+def field_corpus(clips: dict) -> list[tuple[str, str, bytes]]:
+    """Phase 14's structure-aware streams, as (clip, field, stream): the
+    multi-frame and tagged clips unmutated (field "none"), every
+    deterministic mutation of field_cases(clips, every_clip=True), then
+    FIELD_FLIPS seeded aimed flips of each field of each clip."""
+    rng = np.random.default_rng(FIELD_SEED)
+    out = [(name, "none", buf) for name, buf in clips.items()
+           if name == "multi16" or name.endswith(("_setg", "_apev2"))]
+    out += [(case[0], case[1], field_case(clips, case))
+            for case in field_cases(clips, every_clip=True)]
+    for name, buf in clips.items():
+        fields = stream_fields(buf)
+        names = (SETG_FIELDS if name.endswith("_setg") else APE_FIELDS
+                 if name.endswith("_apev2") else HEADER_FIELDS + FRAME_FIELDS)
+        for field in names:
+            for _ in range(FIELD_FLIPS if field in fields else 0):
+                out.append((name, field, aimed_flip(
+                    buf, fields, field, lambda n: int(rng.integers(n)))))
+    return out
 
 
 def same_channels(a, b) -> bool:
@@ -2236,7 +2746,12 @@ def same_channels(a, b) -> bool:
 
 def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
     """Phase 14: the card's three decode paths against their CPU versions and
-    the oracle on a seeded corpus of mutated streams."""
+    the oracle on a seeded corpus of mutated streams: random byte flips and
+    the structure-aware mutations; on each stream the oracle refuses, the
+    stream prefix of decode_stream on the card; on the structure-aware
+    streams, decode_files of the stream between two valid files of its
+    group on the card."""
+    import collections
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2244,11 +2759,17 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
         "CPU versions and the oracle")
     t_phase = time.perf_counter()
     clips = hostile_clips()
-    bufs = hostile_corpus(clips)
+    fclips = field_clips(clips)
+    bases = {**clips, **fclips}
+    entries = [(name, "none" if i < len(clips) else "xor", buf)
+               for i, (name, buf) in enumerate(hostile_corpus(clips))]
+    n_xor = len(entries)
+    entries += field_corpus(fclips)
     pool = ProcessPoolExecutor(HOSTILE_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
     with pool:   # the CPU side in worker processes while the card runs
-        refs = [pool.submit(hostile_reference, buf) for _, buf in bufs]
+        refs = [pool.submit(hostile_reference, buf, bases[name])
+                for name, _, buf in entries]
         # the residue wire each path took: unpack's fits16, recorded per path
         real_unpack, fits = decoder.unpack, []
 
@@ -2261,14 +2782,23 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
         for mod in mods:
             mod.unpack = unpack
         k_lpc.launches = k_iir.launches = 0
-        card, wire32 = [], dict.fromkeys(HOSTILE_PATHS, 0)
+        card, wire32, partners = [], dict.fromkeys(HOSTILE_PATHS, 0), {}
         try:
-            for _, buf in bufs:
+            for i, (name, field, buf) in enumerate(entries):
                 got = {}
                 for p in HOSTILE_PATHS:
                     fits.clear()
-                    got[p] = hostile_path(p, buf, "cuda", HOSTILE_CHUNK_CUDA)
+                    if p == "decode_stream":   # its blocks kept for the prefix
+                        got["prefix"] = stream_blocks(buf, "cuda",
+                                                      HOSTILE_CHUNK_CUDA)
+                        got[p] = stream_channels(buf, *got["prefix"])
+                    else:
+                        got[p] = hostile_path(p, buf, "cuda",
+                                              HOSTILE_CHUNK_CUDA)
                     wire32[p] += got[p] is not None and not all(fits)
+                if i >= n_xor:
+                    got["group"] = card_group(corpus, container, bases[name],
+                                              buf, partners)
                 card.append(got)
         finally:
             for mod in mods:
@@ -2279,7 +2809,10 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
 
     accepted = dict.fromkeys(HOSTILE_PATHS, 0)
     oracle_accepts, split = 0, {}
-    for (name, buf), got, (oracle, leaves, cpu) in zip(bufs, card, refs):
+    refused, prefix_blocks = collections.Counter(), 0
+    for (name, field, buf), got, (oracle, leaves, cpu, prefix) in zip(
+            entries, card, refs):
+        what = f"hostile {name} ({field})"
         oracle_accepts += oracle is not None
         if leaves:
             split[name] = split.get(name, 0) + 1
@@ -2291,16 +2824,35 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
         for p in HOSTILE_PATHS:
             verdicts = (got[p] is None, cpu[p] is None, oracle is None)
             check(len(set(verdicts)) == 1,
-                  f"hostile {name}: {p} refused on the card / on the CPU / by "
-                  f"the oracle: {verdicts}")
+                  f"{what}: {p} refused on the card / on the CPU / by the "
+                  f"oracle: {verdicts}")
             if got[p] is not None:
                 accepted[p] += 1
                 check(same_channels(got[p], cpu[p]),
-                      f"hostile {name}: {p}'s PCM on the card differs from "
-                      f"its PCM on the CPU")
+                      f"{what}: {p}'s PCM on the card differs from its PCM "
+                      f"on the CPU")
                 check(leaves or same_channels(got[p], want[p]),
-                      f"hostile {name}: {p}'s PCM on the card differs from "
-                      f"the oracle's")
+                      f"{what}: {p}'s PCM on the card differs from the "
+                      f"oracle's")
+        if oracle is None:
+            refused[field] += 1
+            prefix_blocks += len(got["prefix"][0])
+            fault = stream_prefix_fault(prefix, *got["prefix"])
+            check(fault is None, f"{what}: decode_stream's prefix on the "
+                  f"card: {fault}")
+        if "group" in got:
+            files, steps, alone = got["group"]
+            check((files is None) == (oracle is None),
+                  f"{what}: decode_files of the group on the card refused "
+                  f"{files is None}, the oracle {oracle is None}")
+            check(files is not None or steps == 0,
+                  f"{what}: {steps} device steps before the group's refusal")
+            check(files is None or (
+                same_channels(files[0], alone[0])
+                and same_channels(files[1], got["decode_files"])
+                and same_channels(files[2], alone[1])),
+                f"{what}: a file of the group differs from its one-file "
+                f"decode on the card")
     check(launches["lpc"] > 0 and launches["iir"] > 0,
           f"hostile streams: K1 or the IIR was not launched {launches}")
     i_wrap = list(clips).index("wrap16")
@@ -2317,10 +2869,17 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
           "the wrapping stream: decode_sela on the card does not narrow to "
           "int16 as both packages do")
     secs = time.perf_counter() - t_phase
-    log(f"{len(bufs)} streams ({len(clips)} unmutated, "
-        f"{HOSTILE_MUTATIONS} mutations of each of the 5 base clips), oracle "
-        f"accepts {oracle_accepts}; accepted on the card and on the CPU: "
-        + ", ".join(f"{p} {accepted[p]}" for p in HOSTILE_PATHS)
+    n_field = len(entries) - n_xor
+    n_cases = len(field_cases(fclips, every_clip=True))
+    n_new = len(fclips) - 5   # the clips hostile_clips lacks, unmutated
+    log(f"{len(entries)} streams: {n_xor} of byte flips ({len(clips)} "
+        f"unmutated, {HOSTILE_MUTATIONS} mutations of each of the 5 base "
+        f"clips) and {n_field} structure-aware on {len(fclips)} clips "
+        f"({n_new} unmutated, {n_cases} field edits and truncations, "
+        f"{n_field - n_new - n_cases} aimed flips); "
+        f"oracle accepts {oracle_accepts}, refuses "
+        f"{len(entries) - oracle_accepts}; accepted on the card and on the "
+        f"CPU: " + ", ".join(f"{p} {accepted[p]}" for p in HOSTILE_PATHS)
         + "; with the int32 residue wire (fits16 false): "
         + ", ".join(f"{p} {wire32[p]}" for p in HOSTILE_PATHS)
         + f"; equal to the oracle's samples but {sum(split.values())} whose "
@@ -2330,6 +2889,11 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
         f"the oracle, decode_sela {int(np.count_nonzero(narrowed != want))} "
         f"samples narrowed as both packages narrow them; card side "
         f"{t_card:.1f} s, phase {secs:.1f} s")
+    log(f"stream prefix on the card: {sum(refused.values())} refused "
+        f"streams, {prefix_blocks} blocks yielded before the refusals, each "
+        f"the oracle's; group damage on the card: {n_field} streams between "
+        f"two valid files, each refusal before any device step; refused by "
+        f"field: " + json.dumps(dict(sorted(refused.items()))))
 
 
 def main(argv: list[str]) -> int:
