@@ -1382,7 +1382,8 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
           f"({len(buf)} and {oracle_bytes} bytes)")
     log(f"  ratio {len(buf) / (pcm_mb * 1e6):.4f}{vs}; {len(buf)} bytes; "
         f"partitioned subframe share {part_share:.4f}; mid/side frame share "
-        f"{ms_share:.3f}; order histogram {hist}")
+        f"{ms_share:.3f}; int32 residue fetches "
+        f"{m.counters.get('int32_fetch', 0)} chunks; order histogram {hist}")
     needed = ENCODE_KERNELS + (("quarter_counts",) if v2 else ())
     check(all(launches[k] > 0 for k in needed),
           f"{label}: a kernel was not launched on the encode path {launches}")
@@ -2896,11 +2897,397 @@ def phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir) -> None:
         f"field: " + json.dumps(dict(sorted(refused.items()))))
 
 
+# ------------------------------------------------------------ encode sweep --
+# A seeded covering set of the encoder's input and profile space. Every
+# depth, channel count, length, frame size, content and profile knob value
+# below is in at least one case, and the pairs that one code path joins are
+# together: 3 channels under est (one channel left unpaired), frame sizes
+# that are no multiple of 4 under v2 (K3's and K5's scalar staging, K8's
+# quarters), 32-bit stereo under the L/R rule, a 24-bit pair whose L - R
+# needs 25 bits, 16-bit residues that leave int16 (the int32 fetch). A class
+# is one (depths, channels, frame size, profile): one signature of the JAX
+# encoder on the CPU. tests/test_torch_encode_sweep.py imports these
+# functions, so the CPU tests and phase 15 sweep the same cases.
+
+SWEEP_SEED = 17
+SWEEP_CARD_SEEDS = 8      # phase 15: seeds SWEEP_SEED .. SWEEP_SEED + 7
+SWEEP_TAIL = 517          # "3fs+": three frames and a tail
+# (class, depths, channels, frame size, profile knobs besides frame_size ({}:
+# the default profile), lengths ("fs" the frame size), contents)
+SWEEP_CLASSES = (
+    ("st16", (16, 8), 2, 2048, {},
+     ("1", "31", "32", "33", "fs-1", "fs", "fs+1", "3fs+"),
+     ("tone", "noise", "silence", "ramp", "square", "extremes", "identical",
+      "one_silent", "identical_square", "square74")),
+    ("mono16", (16, 8), 1, 2048, {"max_order": 1, "rice_k_max": 0},
+     ("33", "fs", "3fs+"), ("ramp", "extremes", "chord", "tone")),
+    ("lr", (32, 24), 2, 2047, {"residue_partition": 4},
+     ("1", "fs-1", "fs", "fs+1", "3fs+"), ("spikes", "noise", "close_pair",
+                                          "square", "extremes", "tone",
+                                          "identical")),
+    ("tri8", (8,), 3, 1000, {},
+     ("31", "fs-1", "fs+1", "3fs+"), ("tone", "one_silent", "identical",
+                                     "noise")),
+    ("st24", (24,), 2, 1000, {},
+     ("1", "33", "fs", "3fs+"), ("wide_side", "tone", "ramp", "noise")),
+    ("six24", (24,), 6, 33, {},
+     ("1", "32", "33", "fs+1", "3fs+"), ("tone", "identical", "wide_side",
+                                        "extremes", "silence")),
+    ("ex16", (16, 8), 2, 32, {"mid_side": "exact", "max_order": 8,
+                              "rice_k_max": 7},
+     ("1", "31", "32", "33", "3fs+"), ("tone", "identical_square",
+                                       "wide_side", "square", "noise")),
+)
+# knobs of one depth of a class on top of the class's: 24-bit "lr" cases
+# are mid_side "off", which runs 32-bit stereo's path (the L/R rule's) on
+# <= 24-bit PCM, in the same JAX signature
+SWEEP_DEPTH_KNOBS = {("lr", 24): {"mid_side": "off"}}
+# contents whose bits and length are their point: a full-scale square wave
+# of period 74 at 16 bits, whose residues leave int16 in every frame, and
+# 32-bit spikes in a tone, whose residues pass the FIR guard's 2^30
+SWEEP_FIXED = {"square74": (16, 4500), "spikes": (32, 4500)}
+SWEEP_RATES = (44100, 48000, 96000, 22050, 8000)
+
+
+def sweep_length(spec: str, fs: int) -> int:
+    if spec == "3fs+":
+        return 3 * fs + SWEEP_TAIL % fs
+    if spec.startswith("fs"):
+        return fs + int(spec[2:] or 0)
+    return int(spec)
+
+
+def sweep_content(kind: str, n: int, C: int, bits: int, rng) -> list:
+    """C channels of n samples of `kind` at `bits`, full scale where the
+    kind says so, as int32 arrays."""
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    t = np.arange(n)
+
+    def tone(c):
+        x = 0.6 * hi * np.sin(2 * np.pi * (0.011 + 0.007 * c) * t + c)
+        return x + rng.normal(0, 1e-3 * hi + 1, n)
+
+    def square(period):
+        return np.where((t // (period // 2)) % 2 == 0, hi, lo)
+
+    if kind == "noise":
+        chans = [rng.integers(lo, hi + 1, n) for _ in range(C)]
+    elif kind == "tone":
+        chans = [tone(c) for c in range(C)]
+    elif kind == "chord":   # five partials: LPC orders well past 8
+        chans = [sum(0.12 * hi * np.sin(2 * np.pi * f * t + c)
+                     for f in (0.013, 0.029, 0.047, 0.071, 0.11))
+                 + rng.normal(0, 1e-3 * hi + 1, n) for c in range(C)]
+    elif kind == "silence":
+        chans = [np.zeros(n) for _ in range(C)]
+    elif kind == "ramp":   # MIN to MAX over the clip, then sawtooths
+        chans = [lo + (t * (hi - lo)) // max(n - 1, 1)] + [
+            lo + (t * (hi - lo) // (90 + 37 * c)) % (hi - lo + 1)
+            for c in range(1, C)]
+    elif kind == "square":
+        chans = [square(8 + 10 * c) for c in range(C)]
+    elif kind == "extremes":
+        chans = [rng.choice(np.array([lo, 0, hi]), n) for _ in range(C)]
+    elif kind == "identical":
+        chans = [tone(0)] * C
+    elif kind == "identical_square":
+        chans = [square(16)] * C
+    elif kind == "one_silent":
+        chans = [tone(c) for c in range(C - 1)] + [np.zeros(n)]
+    elif kind == "wide_side":   # L - R needs bits + 1: (MAX, MIN), (MIN, MAX)
+        half = t < n // 2
+        chans = [np.where(half, hi, lo), np.where(half, lo, hi)] + [
+            tone(c) for c in range(2, C)]
+    elif kind == "square74":
+        chans = [square(74)] * C
+    elif kind == "spikes":   # MIN and MAX in a tone: residues past 2^30
+        chans = [tone(c) for c in range(C)]
+        for c, x in enumerate(chans):
+            x[97 + c::301], x[248 + c::301] = hi, lo
+    elif kind == "close_pair":   # R = L + a little noise: mid/side pays
+        left = tone(0)
+        chans = [left, left + rng.normal(0, 4, n)] + [
+            tone(c) for c in range(2, C)]
+    else:
+        raise ValueError(kind)
+    return [np.clip(np.round(x), lo, hi).astype(np.int32)[:n] for x in chans]
+
+
+def sweep_cases(seed: int = SWEEP_SEED) -> list[dict]:
+    """Every class's cases for one seed: as many as its lengths or its
+    contents, whichever are more, each length and each content at least
+    once, the depths in turn. SWEEP_SEED takes them in the tables' order;
+    other seeds shuffle the lengths, contents and depths of each class.
+    A case: name, klass, seed, rate, bits, chans, frame_size, profile (the
+    knobs besides frame_size; {} is the default profile) and content."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for klass, depths, C, fs, knobs, lengths, contents in SWEEP_CLASSES:
+        lens = [sweep_length(s, fs) for s in lengths]
+        kinds, depths = list(contents), list(depths)
+        if seed != SWEEP_SEED:
+            rng.shuffle(lens)
+            rng.shuffle(kinds)
+            rng.shuffle(depths)
+        for i in range(max(len(lens), len(kinds))):
+            kind = kinds[i % len(kinds)]
+            bits, n = SWEEP_FIXED.get(kind, (depths[i % len(depths)],
+                                             lens[i % len(lens)]))
+            out.append(dict(
+                name=f"{klass}-s{seed}-{i}-{kind}-{bits}b-n{n}", klass=klass,
+                seed=seed, rate=SWEEP_RATES[(i + seed) % len(SWEEP_RATES)],
+                bits=bits,
+                chans=sweep_content(kind, n, C, bits, rng), frame_size=fs,
+                profile={**knobs, **SWEEP_DEPTH_KNOBS.get((klass, bits), {})},
+                content=kind))
+    return out
+
+
+def sweep_encode_args(case: dict, profile_cls) -> dict:
+    """encode_wav's keywords for a case, with the BitstreamProfile class of
+    the package that encodes it: the frame size alone for the default
+    profile, else the profile."""
+    if not case["profile"]:
+        return {"frame_size": case["frame_size"]}
+    return {"profile": profile_cls(frame_size=case["frame_size"],
+                                   **case["profile"])}
+
+
+def sweep_est_split(case: dict) -> bool:
+    """The split both packages share and the oracle does not: under est
+    (mid_side "auto", <= 24-bit), a frame where one of a pair's four
+    candidate rows (L, R, mid, side) is silent and another is not. A silent
+    row's modeled cost is 0 (its r0 is 0), while a row with signal costs
+    less than 0, so the rule compares costs that differ by more than their
+    per-row constant: identical channels (side silent) keep L/R, one silent
+    channel takes mid/side."""
+    if (case["bits"] > 24 or len(case["chans"]) < 2
+            or case["profile"].get("mid_side", "auto") != "auto"):
+        return False
+    fs, chans = case["frame_size"], case["chans"]
+    F = -(-len(chans[0]) // fs)
+    for p in range(len(chans) // 2):
+        left, right = (np.resize(np.concatenate(
+            [c, np.zeros(F * fs - len(c), np.int32)]), (F, fs))
+            for c in chans[2 * p: 2 * p + 2])
+        mid = (left >> 1) + (right >> 1) + (left & right & 1)
+        rows = np.stack([left, right, mid, left - right], 1)   # [F, 4, fs]
+        silent = ~rows.any(axis=2)
+        if (silent.any(axis=1) & ~silent.all(axis=1)).any():
+            return True
+    return False
+
+
+def sweep_layout_fault(buf: bytes, case: dict) -> str | None:
+    """What in buf's layout, as the port's copy of the oracle parses it,
+    the case's profile does not allow (None: nothing): frame sizes, LPC
+    orders over max_order, Rice ks over rice_k_max but the escape,
+    partitions without v2, mid/side on 32-bit PCM or under "off"."""
+    from sela_tpu_torch.format import (MAX_ORDER, RICE_K_ESCAPE, RICE_K_MAX,
+                                       RICE_PARTITION_MARKER, SF_DIRECT)
+    from sela_tpu_torch.ref import container
+
+    knobs, fs, n = case["profile"], case["frame_size"], len(case["chans"][0])
+    ks = set(range(knobs.get("rice_k_max", RICE_K_MAX) + 1)) | {RICE_K_ESCAPE}
+    mid_side = case["bits"] <= 24 and knobs.get("mid_side") != "off"
+    h = container.parse_header(buf)
+    if h.num_frames != -(-n // fs):
+        return f"{h.num_frames} frames"
+    pos = container.HEADER_SIZE
+    for f in range(h.num_frames):
+        subframes, ns, pos = container.parse_frame(buf, pos, h.channels)
+        if ns != min(fs, n - f * fs):
+            return f"frame {f}: {ns} samples"
+        for sf in subframes:
+            part = sf.k_res == RICE_PARTITION_MARKER
+            faults = {
+                "order": sf.order > knobs.get("max_order", MAX_ORDER),
+                "k_coeff": sf.k_coeff not in ks,
+                "k_res": not part and sf.k_res not in ks,
+                "partition": part and (
+                    knobs.get("residue_partition") != 4
+                    or not set(sf.k_res_sub) <= ks),
+                "mid/side": not mid_side and sf.sftype != SF_DIRECT}
+            for what, bad in faults.items():
+                if bad:
+                    return f"frame {f} channel {sf.channel}: {what}"
+    return None
+
+
+def sweep_class(case: dict) -> str:
+    """A case's class for phase 15's lines: depth x channels x frame size x
+    profile."""
+    knobs = ",".join(f"{k}={v}" for k, v in sorted(case["profile"].items()))
+    return (f"{case['bits']}b x {len(case['chans'])} ch x fs "
+            f"{case['frame_size']} x {knobs or 'default'}")
+
+
+def sweep_reference(case: dict) -> tuple[bytes, int]:
+    """The CPU side of a phase-15 case, in a worker process: the port's
+    encode_wav stream on the CPU and the size of the oracle's stream."""
+    from sela_tpu_torch.codec import encoder
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+
+    w = WavData(case["rate"], case["bits"], case["chans"])
+    kw = sweep_encode_args(case, BitstreamProfile)
+    return (encoder.encode_wav(w, device="cpu", **kw),
+            len(ref_codec.encode_wav(w, **kw)))
+
+
+def sweep_oracle_exact(buf: bytes, case: dict) -> bool:
+    """Does the port's oracle copy decode buf to the case's input, its
+    depth, rate and channel count, and does buf keep the case's profile
+    (sweep_layout_fault)? (a worker process)"""
+    from sela_tpu_torch.ref import codec as ref_codec
+
+    out = ref_codec.decode_sela(buf)
+    return ((out.sample_rate, out.bits_per_sample)
+            == (case["rate"], case["bits"])
+            and same_channels(out.channels, case["chans"])
+            and sweep_layout_fault(buf, case) is None)
+
+
+SWEEP_SHARDS = 3          # ranks of the shard encode of P4's two cases
+SWEEP_FILES_CHUNK = 2     # encode_files' chunk: groups share chunks
+
+
+def phase_sweep(encoder, decoder, corpus, multihost, WavData, Metrics,
+                BitstreamProfile, k_lpc, k_iir, k_enc) -> dict:
+    """Phase 15: the encoder's input and profile space on the card,
+    SWEEP_CARD_SEEDS seeds of the sweep generator, against the CPU and the
+    oracle."""
+    import collections
+    import hashlib
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    log("== phase 15: the encode sweep on the card against the CPU and the "
+        "oracle")
+    t_phase = time.perf_counter()
+    cases = [c for s in range(SWEEP_SEED, SWEEP_SEED + SWEEP_CARD_SEEDS)
+             for c in sweep_cases(s)]
+    pool = ProcessPoolExecutor(HOSTILE_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    card, exact, fetched = {}, {}, {}
+    totals = collections.Counter()
+    with pool:   # the CPU side in worker processes while the card runs
+        refs = {c["name"]: pool.submit(sweep_reference, c) for c in cases}
+        for case in cases:
+            name, v2 = case["name"], "residue_partition" in case["profile"]
+            w = WavData(case["rate"], case["bits"], case["chans"])
+            m = Metrics()
+            reset_launches(k_lpc, k_iir, k_enc)
+            buf = encoder.encode_wav(w, device="cuda", metrics=m,
+                                     **sweep_encode_args(case,
+                                                         BitstreamProfile))
+            launches = {"lpc": k_lpc.launches, **k_enc.launches}
+            totals.update(launches)
+            check(all(launches[k] > 0 for k in ENCODE_KERNELS)
+                  and (launches["quarter_counts"] > 0) == v2,
+                  f"{name}: the encode kernels launched {launches}")
+            out = decoder.decode_sela(buf, device="cuda")
+            check((out.sample_rate, out.bits_per_sample)
+                  == (case["rate"], case["bits"])
+                  and same_channels([c.astype(np.int32) for c in
+                                     out.channels], case["chans"]),
+                  f"{name}: the card's stream does not decode to the input "
+                  f"through the port's decode_sela on the card")
+            card[name] = buf
+            fetched[name] = m.counters.get("int32_fetch", 0)
+            exact[name] = pool.submit(sweep_oracle_exact, buf, case)
+        t_wav = time.perf_counter() - t_phase
+
+        # P4: encode_files of each seed's default-profile cases of a frame
+        # size in one call; the shard encode of its 4-frame 1,000 ones
+        groups = collections.defaultdict(list)
+        for case in cases:
+            if not case["profile"]:
+                groups[case["seed"], case["frame_size"]].append(case)
+        n_files = n_shards = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            for (seed, fs), group in groups.items():
+                bufs = corpus.encode_files(
+                    [WavData(c["rate"], c["bits"], c["chans"])
+                     for c in group], SWEEP_FILES_CHUNK, frame_size=fs,
+                    device="cuda")
+                for case, buf in zip(group, bufs):
+                    check(buf == card[case["name"]],
+                          f"{case['name']}: encode_files on the card differs "
+                          f"from encode_wav")
+                n_files += len(group)
+                for case in group:
+                    if fs != 1000 or len(case["chans"][0]) < 3 * fs:
+                        continue
+                    d = os.path.join(tmp, case["name"])
+                    w = WavData(case["rate"], case["bits"], case["chans"])
+                    for rank in range(SWEEP_SHARDS):
+                        multihost.encode_shard(w, d, rank, SWEEP_SHARDS,
+                                               frame_size=fs, device="cuda")
+                    merged = os.path.join(d, "merged.sela")
+                    multihost.merge_shards(d, SWEEP_SHARDS, merged)
+                    with open(merged, "rb") as f:
+                        sha = hashlib.sha256(f.read()).hexdigest()
+                    check(sha == hashlib.sha256(card[case["name"]])
+                          .hexdigest(), f"{case['name']}: the shard merge's "
+                          f"sha256 is not encode_wav's")
+                    n_shards += 1
+        t_card = time.perf_counter() - t_phase
+        refs = {k: r.result() for k, r in refs.items()}
+        exact = {k: r.result() for k, r in exact.items()}
+
+    by_class = collections.defaultdict(list)
+    over_oracle = collections.Counter()
+    worst = 0.0
+    for case in cases:
+        name = case["name"]
+        cpu, oracle = refs[name]
+        got = len(card[name])
+        check(exact[name], f"{name}: the card's stream does not decode to "
+              f"the input through the oracle, or breaks its profile")
+        diff = abs(got - len(cpu)) / len(cpu)
+        worst = max(worst, diff)
+        check(diff <= 0.005, f"{name}: the card's stream is {got} bytes, the "
+              f"CPU's {len(cpu)}: over 0.5% apart")
+        if got > 1.01 * oracle + 64:
+            over_oracle["est split" if sweep_est_split(case) else
+                        case["klass"]] += 1
+        by_class[sweep_class(case)].append(
+            (got, len(cpu), oracle, got == len(cpu) and card[name] == cpu,
+             fetched[name]))
+    int32_cases = [c["name"] for c in cases if fetched[c["name"]]]
+    check(any(fetched[c["name"]] for c in cases
+              if c["content"] == "square74"),
+          "the int32 residue fetch did not run on the square74 case")
+    for klass, rows in sorted(by_class.items()):
+        log(f"  {klass}: {len(rows)} cases, card/CPU bytes "
+            f"{sum(r[0] for r in rows)}/{sum(r[1] for r in rows)}, "
+            f"{sum(r[3] for r in rows)} byte-identical to the CPU's, "
+            f"card/oracle {sum(r[0] for r in rows) / sum(r[2] for r in rows):.4f}, "
+            f"int32 fetches {sum(r[4] for r in rows)}")
+    secs = time.perf_counter() - t_phase
+    log(f"{len(cases)} cases ({SWEEP_CARD_SEEDS} seeds of {len(by_class)} "
+        f"classes): each decodes to the input through the oracle and the "
+        f"card's decode_sela and keeps its profile; card within {worst:.5f} of the CPU's size "
+        f"(gate 0.005); encode_files gives encode_wav's bytes on {n_files} "
+        f"files, the shard merge its sha256 on {n_shards} over "
+        f"{SWEEP_SHARDS} ranks; launches {dict(totals)}; int32 residue "
+        f"fetches {sum(fetched.values())} chunks in {len(int32_cases)} cases; "
+        f"over 1.01x the oracle + 64 bytes (a reading): {dict(over_oracle)}; "
+        f"encode_wav {t_wav:.1f} s, card side {t_card:.1f} s, phase "
+        f"{secs:.1f} s")
+    return dict(cases=len(cases), int32_fetch=sum(fetched.values()),
+                launches=dict(totals), seconds=secs)
+
+
 def main(argv: list[str]) -> int:
     import torch
 
-    if argv not in ([], ["--encode-profile"]):
-        fail(f"usage: python3 chip_smoke.py [--encode-profile], got {argv}")
+    if argv not in ([], ["--encode-profile"], ["--encode-sweep"]):
+        fail(f"usage: python3 chip_smoke.py [--encode-profile | "
+             f"--encode-sweep], got {argv}")
 
     kind, smi = phase_device(torch)
     sys.path.insert(0, HERE)
@@ -2923,6 +3310,7 @@ def main(argv: list[str]) -> int:
     from sela_tpu_torch.ops import filters
     from sela_tpu_torch.ops import pack as ops_pack
     from sela_tpu_torch.ops import rice as ops_rice
+    from sela_tpu_torch.parallel import multihost
     from sela_tpu_torch.ref import codec as ref_codec
     from sela_tpu_torch.ref import container
     from sela_tpu_torch.ref import lpc as ref_lpc
@@ -2935,6 +3323,11 @@ def main(argv: list[str]) -> int:
     enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
                 container, k_lpc, k_iir, k_enc)
     v2 = BitstreamProfile(residue_partition=4)
+    sweep_args = (encoder, decoder, corpus, multihost, WavData, Metrics,
+                  BitstreamProfile, k_lpc, k_iir, k_enc)
+    if argv == ["--encode-sweep"]:   # phase 15 alone
+        phase_sweep(*sweep_args)
+        return 0
     if argv:   # --encode-profile: the profiled encodes alone
         log("== the profiled encodes alone: cd_180s v1 and v2, perc_20s v2")
         cd = make_track(180.0, 44100, 16, seed=0)
@@ -3030,8 +3423,9 @@ def main(argv: list[str]) -> int:
     tools = phase_tools(torch, k_chain, k_lpc, k_iir, k_enc, BUILD_DIR, nvcc)
     k9 = tools["k9"]
     phase_hostile(decoder, stream, corpus, container, k_lpc, k_iir)
+    phase_sweep(*sweep_args)
 
-    log("== phase 15: summary")
+    log("== phase 16: summary")
 
     def entry(name, source, replaces, res, launches, library_ms=None,
               launches_by_path=None, **extra):

@@ -21,7 +21,8 @@ from ..ref import container
 from ..ref.wav import WavData
 from ..utils.device import resolve_device
 from .decoder import DEFAULT_CHUNK_FRAMES, merge_scans, scan, unpack
-from .encoder import PLAN, frame_batches, pack_frames, serialize_frames
+from .encoder import (PLAN, check_frame_size, frame_batches, pack_frames,
+                      serialize_frames)
 from .pipeline import decode_step, encode_step
 
 
@@ -34,15 +35,19 @@ def _groups(keys) -> dict:
 
 
 def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
-                 device=None) -> list[bytes]:
+                 frame_size: int = FRAME_SIZE, device=None) -> list[bytes]:
     """Encode WavData files to .sela bytes on `device` (default: the CUDA
-    card), the files of a group sharing device chunks; the default profile.
+    card), the files of a group sharing device chunks; the default profile
+    at `frame_size` samples a frame. Each file's stream is its encode_wav
+    stream at that frame size.
 
     device="cpu" runs the plain PyTorch versions of the kernels; with no
-    device named and no CUDA available this raises.
+    device named and no CUDA available this raises. frame_size outside
+    [32, FRAME_SIZE] raises (encoder.check_frame_size).
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+    check_frame_size(frame_size)
     for i, w in enumerate(wavs):
         if w.n_samples == 0:
             raise ValueError(f"file {i}: empty audio")
@@ -50,7 +55,7 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     results: list[bytes | None] = [None] * len(wavs)
     groups = _groups((w.n_channels, w.bits_per_sample <= 24) for w in wavs)
     for (C, allow_ms), idxs in groups.items():
-        framed = [frame_batches(wavs[i].channels) for i in idxs]
+        framed = [frame_batches(wavs[i].channels, frame_size) for i in idxs]
         x_all = np.concatenate([x for x, _ in framed])
         nv_all = np.concatenate([nv for _, nv in framed])
         plans, residues = [], []

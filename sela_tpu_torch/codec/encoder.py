@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import BitstreamProfile
 from ..format import FRAME_SIZE, MAX_ORDER, SYNC
 from ..native import bitio
 from ..ref import container
@@ -50,6 +51,17 @@ def frame_batches(channels: list[np.ndarray], frame_size: int = FRAME_SIZE,
     if n % frame_size:
         n_valid[-1] = n % frame_size
     return flat.reshape(C, F, frame_size).transpose(1, 0, 2), n_valid
+
+
+def check_frame_size(frame_size) -> None:
+    """Refuse a frame size the container cannot carry: a non-integer
+    (TypeError) or one outside [32, FRAME_SIZE] (ValueError, the profile's
+    message). sela_tpu refuses 0, negative and < 32 sizes by accident of its
+    arithmetic and writes frames over FRAME_SIZE samples that every decoder
+    refuses."""
+    if not isinstance(frame_size, (int, np.integer)):
+        raise TypeError(f"frame_size must be an integer, got {frame_size!r}")
+    BitstreamProfile(frame_size=int(frame_size)).validate()
 
 
 def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
@@ -151,6 +163,7 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
         allow_ms = profile.mid_side != "off"
         ms_mode = "exact" if profile.mid_side == "exact" else "est"
         partition = profile.residue_partition
+    check_frame_size(frame_size)
     allow_ms = allow_ms and w.bits_per_sample <= 24   # FORMAT.md: 32-bit is LR
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -202,6 +215,7 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
             res = slot.res[:fcount].numpy()
             if wire16 and not slot.fits16[:fcount].numpy().all():
                 res = res32.cpu().numpy()
+                m.count("int32_fetch")
         with m.stage("host_pack"):
             nv = n_valid[start:start + fcount]
             frames.append(serialize_frames(

@@ -6,10 +6,12 @@ tests/test_torch_isolation.py.)"""
 import numpy as np
 import pytest
 
+import chip_smoke as cs
 from sela_tpu.codec import corpus as jax_corpus
 from sela_tpu.ref import codec as jax_ref_codec
 from sela_tpu_torch.codec import corpus
 from sela_tpu_torch.codec.encoder import encode_wav
+from sela_tpu_torch.config import BitstreamProfile
 from sela_tpu_torch.errors import ContainerError
 from sela_tpu_torch.ref import container
 from sela_tpu_torch.ref import rice as ref_rice
@@ -116,3 +118,65 @@ def test_damaged_buffer_raises_container_error(rng, signal_factory):
     for bad in _damaged(bufs[1]):
         with pytest.raises(ContainerError):
             corpus.decode_files([bufs[0], bad], device="cpu")
+
+
+# ------------------------------------------------ encode_files' frame_size --
+# chip_smoke.py's encode sweep (tests/test_torch_encode_sweep.py): its
+# 24-bit default-profile cases at frame sizes 1,000 and 33
+SWEEP = cs.sweep_cases()
+
+
+def _sweep_wav(case: dict) -> WavData:
+    return WavData(case["rate"], case["bits"], case["chans"])
+
+
+@pytest.mark.parametrize("frame_size", [1000, 33])
+def test_encode_files_frame_size_matches_jax(frame_size):
+    """24-bit stereo at 1,000 and six channels at 33: each stream is the
+    port's encode_wav at that frame size, decodes through the oracle and is
+    <= 1.005x the JAX encode_files' (whose signature is these cases' JAX
+    encode_wav's in tests/test_torch_encode_sweep.py)."""
+    cases = [c for c in SWEEP if not c["profile"] and c["bits"] == 24
+             and c["frame_size"] == frame_size]
+    wavs = [_sweep_wav(c) for c in cases]
+    bufs = corpus.encode_files(wavs, chunk_frames=3, frame_size=frame_size,
+                               device="cpu")
+    jax_bufs = jax_corpus.encode_files(wavs, chunk_frames=CHUNK,
+                                       frame_size=frame_size)
+    assert len(bufs) == len(jax_bufs) > 3
+    for w, buf, jax_buf in zip(wavs, bufs, jax_bufs):
+        assert buf == encode_wav(w, frame_size=frame_size, device="cpu")
+        out = jax_ref_codec.decode_sela(buf)
+        assert (out.sample_rate, out.bits_per_sample) == (w.sample_rate,
+                                                          w.bits_per_sample)
+        for a, b in zip(out.channels, w.channels, strict=True):
+            np.testing.assert_array_equal(a, b)
+        assert len(buf) <= 1.005 * len(jax_buf), (len(buf), len(jax_buf))
+
+
+@pytest.mark.parametrize("frame_size", [0, -5, 16, 31, 100.0])
+def test_encode_files_refuses_what_sela_tpu_refuses(frame_size):
+    w = _sweep_wav(SWEEP[0])
+    with pytest.raises(Exception):
+        jax_corpus.encode_files([w], chunk_frames=CHUNK,
+                                frame_size=frame_size)
+    with pytest.raises(TypeError if isinstance(frame_size, float)
+                       else ValueError):
+        corpus.encode_files([w], frame_size=frame_size, device="cpu")
+
+
+@pytest.mark.parametrize("frame_size", [2049, 4096])
+def test_frame_sizes_over_the_container_cap_are_refused(frame_size):
+    """sela_tpu's encode_files writes frames over 2,048 samples, which
+    every decoder refuses; the port's encode_files and encode_wav refuse
+    the frame size, with the profile's message."""
+    w = _sweep_wav(SWEEP[0])
+    with pytest.raises(ValueError) as want:
+        BitstreamProfile(frame_size=frame_size).validate()
+    for encode in (
+            lambda: corpus.encode_files([w], frame_size=frame_size,
+                                        device="cpu"),
+            lambda: encode_wav(w, frame_size=frame_size, device="cpu")):
+        with pytest.raises(ValueError) as got:
+            encode()
+        assert str(got.value) == str(want.value)

@@ -471,6 +471,53 @@ def test_v2_encode_on_card_gives_input_back(dev):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("kind", ["8bit_3ch_fs33", "16bit_square74"])
+def test_sweep_edges_encode_on_card(dev, kind):
+    """chip_smoke.py's sweep contents at two of the encoder's edges: an
+    8-bit 3-channel clip at frame size 33 (K3's and K5's scalar staging, a
+    channel left unpaired), and a 16-bit full-scale square wave of period
+    74, whose residues leave int16, so each chunk fetches its int32
+    residues. Each stream decodes exactly through the oracle and the
+    port on the card, and is within 0.5% of the CPU's."""
+    import chip_smoke as cs
+    from sela_tpu_torch.codec.decoder import decode_sela
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.ref import codec as ref_codec
+    from sela_tpu_torch.ref.wav import WavData
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    rng = np.random.default_rng(33)
+    if kind == "8bit_3ch_fs33":
+        bits, fs, chans = 8, 33, cs.sweep_content("tone", 3 * 33 + 10, 3, 8,
+                                                   rng)
+        chans[2] = cs.sweep_content("noise", len(chans[0]), 1, 8, rng)[0]
+    else:
+        bits, fs, chans = 16, 2048, cs.sweep_content("square74", 4500, 2, 16,
+                                                      rng)
+    w = WavData(44100, bits, chans)
+    for name in k_enc.launches:
+        k_enc.launches[name] = 0
+    before = k_lpc.launches
+    m = Metrics()
+    buf = encode_wav(w, frame_size=fs, chunk_frames=2, device="cuda",
+                     metrics=m)
+    frames = -(-len(chans[0]) // fs)
+    chunks = -(-frames // 2)
+    # one render a chunk: K1, K5 and K6 once, K3 and K4 once, K8 never
+    assert k_lpc.launches - before == chunks
+    assert {k: v for k, v in k_enc.launches.items()} == {
+        "autocorr": chunks, "levinson": chunks, "fir_rice": chunks,
+        "ksel": chunks, "quarter_counts": 0}, k_enc.launches
+    fetched = m.counters.get("int32_fetch", 0)
+    assert fetched == (chunks if kind == "16bit_square74" else 0)
+    cpu = encode_wav(w, frame_size=fs, chunk_frames=2, device="cpu")
+    assert abs(len(buf) - len(cpu)) <= 0.005 * len(cpu)
+    for out in (decode_sela(buf, device="cuda"), ref_codec.decode_sela(buf)):
+        assert (out.sample_rate, out.bits_per_sample) == (44100, bits)
+        for a, b in zip(out.channels, chans, strict=True):
+            np.testing.assert_array_equal(a, b)
+
+
 def _pack_rows(rng, B: int, N: int, k):
     """[B, N] int32 rows for the Rice packer at parameter k (an int, or
     None: each row at its optimal k): values within a few bits of k's range

@@ -135,6 +135,9 @@ def test_corpus_without_device_raises_on_cuda_less_host():
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             encode_files([w], device=device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            encode_files([w], frame_size=100, device=device)
+    assert encode_files([w], frame_size=100, device="cpu")[0][:4] == b"SeLa"
     bufs = encode_files([w], device="cpu")
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
