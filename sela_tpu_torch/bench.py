@@ -227,7 +227,8 @@ def bench_host_pack(n_blocks: int = 4096, n_vals: int = 2048,
     k4 = np.zeros(n_blocks, np.int32)
     sink = np.zeros(n_blocks, np.int64)
     t_count, _ = _timed_min(lambda: lib.rice_block_words(
-        flat, offs, counts, ks, k4, ctypes.c_int64(n_blocks), sink), iters)
+        flat, offs, counts, ks, k4, ctypes.c_int64(n_blocks), sink, None),
+        iters)
     woffs = np.zeros(n_blocks, np.int64)
     np.cumsum(wcounts[:-1], out=woffs[1:])
     t_unpack, out = _timed_min(lambda: bitio.unpack_blocks_flat(

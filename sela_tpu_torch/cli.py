@@ -30,12 +30,12 @@ RANK); `merge-shards` exits 3 naming the ranks whose parts are missing. Profile 
 verify) runs the port's numpy oracle (`ref/codec.py`) in place of the
 device codec; `--log-json` (encode, decode) writes one JSON-lines metrics
 record to stderr; `--profile-trace DIR` (encode, decode) writes a
-torch.profiler trace (CPU and CUDA activities) into DIR. `-e`, `-d` and
-`-p` stand for encode, decode and play. A missing file, a malformed WAV or
-`.sela` and a bad value exit 2 with a one-line message. The JAX CLI's
-`decode --iir` has no counterpart: one IIR kernel serves K2's and K7's
-contracts, chosen by the device. The `selax` entry point of the JAX
-package is separate and unchanged.
+torch.profiler trace (CPU and CUDA activities, the stages as `stage:<name>`
+ranges) into DIR. `-e`, `-d` and `-p` stand for encode, decode and play. A
+missing file, a malformed WAV or `.sela` and a bad value exit 2 with a
+one-line message. The JAX CLI's `decode --iir` has no counterpart: one IIR
+kernel serves K2's and K7's contracts, chosen by the device. The `selax`
+entry point of the JAX package is separate and unchanged.
 """
 from __future__ import annotations
 
@@ -88,9 +88,11 @@ def _device(args):
 
 
 def _metrics_from(args):
+    """A sink for --log-json's record, and for --profile-trace's stage
+    ranges."""
     from .utils.metrics import NULL_METRICS, Metrics
 
-    return Metrics() if args.log_json else NULL_METRICS
+    return Metrics() if args.log_json or args.profile_trace else NULL_METRICS
 
 
 def _engine(args) -> str:

@@ -70,27 +70,34 @@ def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def pack_frames(plan: np.ndarray, res: np.ndarray, nv: np.ndarray):
+def pack_frames(plan: np.ndarray, res: np.ndarray, nv: np.ndarray,
+                metrics=None):
     """Rice-pack every block of a run of frames, in one native call for the
     residue blocks and one for the coefficient blocks.
 
     plan: [F, C, len(PLAN) + 32] int32 (PLAN columns, then qcoeffs);
     res: [F, C, S] residues; nv: [F] valid samples a frame. Returns (cols,
     coeff, resid) for serialize_frames: the PLAN columns as [F C] arrays, and
-    each block kind's (concatenated words, word count a block)."""
+    each block kind's (concatenated words, word count a block). metrics:
+    optional Metrics sink (stages pack_gather, then bitio's)."""
+    m = metrics or NULL_METRICS
     F, C, S = res.shape
-    cols = {k: np.ascontiguousarray(plan[:, :, i].reshape(-1))
-            for i, k in enumerate(PLAN)}
-    order = cols["order"]
-    res_counts = np.repeat(nv, C)
-    evals = res.reshape(F * C, S)[np.arange(S)[None, :] < res_counts[:, None]]
-    resid = bitio.pack_blocks_flat(
-        evals, _exclusive_cumsum(res_counts), res_counts, cols["k_res"],
-        cols["k_res4"])
-    qrows = plan[:, :, len(PLAN):].reshape(F * C, MAX_ORDER)
-    qvals = qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]]
-    coeff = bitio.pack_blocks_flat(
-        qvals, _exclusive_cumsum(order), order, cols["k_coeff"])
+    with m.stage("pack_gather"):
+        cols = {k: np.ascontiguousarray(plan[:, :, i].reshape(-1))
+                for i, k in enumerate(PLAN)}
+        order = cols["order"]
+        res_counts = np.repeat(nv, C)
+        valid = np.arange(S)[None, :] < res_counts[:, None]
+        evals = res.reshape(F * C, S)[valid]
+        res_offs = _exclusive_cumsum(res_counts)
+    resid = bitio.pack_blocks_flat(evals, res_offs, res_counts, cols["k_res"],
+                                   cols["k_res4"], metrics=m)
+    with m.stage("pack_gather"):
+        qrows = plan[:, :, len(PLAN):].reshape(F * C, MAX_ORDER)
+        qvals = qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]]
+        q_offs = _exclusive_cumsum(order)
+    coeff = bitio.pack_blocks_flat(qvals, q_offs, order, cols["k_coeff"],
+                                   metrics=m)
     # the device planned every block's words from its bit counts (K5, K8,
     # K6); the packer counts them again from the values: they must agree
     if not (np.array_equal(resid[1], cols["nw_res"])
@@ -100,9 +107,11 @@ def pack_frames(plan: np.ndarray, res: np.ndarray, nv: np.ndarray):
     return cols, coeff, resid
 
 
-def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int) -> bytes:
+def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int,
+                     metrics=None) -> bytes:
     """Serialize frames [lo, hi) of a pack_frames result (native library);
-    nv: [F] valid samples a frame of the whole run."""
+    nv: [F] valid samples a frame of the whole run. metrics: optional
+    Metrics sink (stage emit)."""
     cols, coeff, resid = packed
     C = len(cols["order"]) // len(nv)
     s = slice(lo * C, hi * C)
@@ -112,12 +121,13 @@ def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int) -> bytes:
         offs = np.concatenate([[0], np.cumsum(wc)])
         return w[offs[s.start] : offs[s.stop]], wc[s]
 
-    (cw, cwc), (rw, rwc) = words(coeff), words(resid)
-    return bitio.emit_frames(
-        hi - lo, C, SYNC, nv[lo:hi], np.tile(np.arange(C, dtype=np.int32),
-                                             hi - lo),
-        cols["sftype"][s], cols["order"][s], cols["k_coeff"][s], cwc,
-        cols["k_res"][s], rwc, cw, rw, sf_kr4=cols["k_res4"][s])
+    with (metrics or NULL_METRICS).stage("emit"):
+        (cw, cwc), (rw, rwc) = words(coeff), words(resid)
+        return bitio.emit_frames(
+            hi - lo, C, SYNC, nv[lo:hi],
+            np.tile(np.arange(C, dtype=np.int32), hi - lo),
+            cols["sftype"][s], cols["order"][s], cols["k_coeff"][s], cwc,
+            cols["k_res"][s], rwc, cw, rw, sf_kr4=cols["k_res4"][s])
 
 
 class _Slot:
@@ -146,8 +156,9 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     are smaller). device="cpu" runs the plain PyTorch versions of the kernels;
     with no device named and no CUDA available this raises. metrics:
     optional utils.metrics.Metrics sink (stages host_frame /
-    device_dispatch / device_fetch / host_pack). tags: optional metadata
-    appended as a tags trailer (FORMAT.md §Tags).
+    device_dispatch / device_fetch / host_pack, and inside host_pack
+    pack_gather / rice_count / rice_pack / emit; utils/metrics.py). tags:
+    optional metadata appended as a tags trailer (FORMAT.md §Tags).
     """
     if w.n_samples == 0:
         raise ValueError("empty audio")
@@ -219,8 +230,8 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
         with m.stage("host_pack"):
             nv = n_valid[start:start + fcount]
             frames.append(serialize_frames(
-                pack_frames(slot.plan[:fcount].numpy(), res, nv), nv, 0,
-                fcount))
+                pack_frames(slot.plan[:fcount].numpy(), res, nv, m), nv, 0,
+                fcount, m))
         m.count("frames", fcount)
 
     inflight = []

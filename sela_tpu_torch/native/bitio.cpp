@@ -14,7 +14,10 @@
 //
 // Exactness is asserted against the numpy oracle in tests/test_native.py.
 
+#include <time.h>
+
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -132,26 +135,54 @@ inline int part_k(int32_t j, int32_t n, int32_t ks4) {
   return (ks4 >> (8 * q)) & 0xFF;
 }
 
-void parallel_for(int64_t count, void (*fn)(int64_t, void*), void* ctx) {
+inline int64_t wall_ns() {  // steady_clock: CLOCK_MONOTONIC, perf_counter's
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+inline int64_t thread_cpu_ns() {
+  timespec ts;
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+  return static_cast<int64_t>(ts.tv_sec) * 1000000000 + ts.tv_nsec;
+}
+
+// Runs fn(i, ctx) for i in [0, count): on the calling thread, as one
+// worker, for a short count, else on hardware_concurrency threads started
+// for this call. stats, when non-null, gains {workers run, their wall ns
+// summed, their on-CPU ns summed}, each worker timed from its first
+// instruction to its return; null reads no clock.
+void parallel_for(int64_t count, void (*fn)(int64_t, void*), void* ctx,
+                  int64_t* stats) {
   unsigned hw = std::thread::hardware_concurrency();
   if (hw == 0) hw = 2;
-  unsigned nthreads = hw;
-  if (count < static_cast<int64_t>(nthreads) * 4) {
-    for (int64_t i = 0; i < count; ++i) fn(i, ctx);
-    return;
+  unsigned nthreads = count < static_cast<int64_t>(hw) * 4 ? 1 : hw;
+  std::atomic<int64_t> next(0), wall(0), cpu(0);
+  auto worker = [&]() {
+    int64_t w0 = 0, c0 = 0;
+    if (stats) {
+      w0 = wall_ns();
+      c0 = thread_cpu_ns();
+    }
+    for (int64_t i = next.fetch_add(1); i < count; i = next.fetch_add(1))
+      fn(i, ctx);
+    if (stats) {
+      wall.fetch_add(wall_ns() - w0);
+      cpu.fetch_add(thread_cpu_ns() - c0);
+    }
+  };
+  if (nthreads == 1) {
+    worker();
+  } else {
+    std::vector<std::thread> pool;
+    for (unsigned t = 0; t < nthreads; ++t) pool.emplace_back(worker);
+    for (auto& th : pool) th.join();
   }
-  std::atomic<int64_t> next(0);
-  std::vector<std::thread> pool;
-  for (unsigned t = 0; t < nthreads; ++t) {
-    pool.emplace_back([&]() {
-      for (;;) {
-        int64_t i = next.fetch_add(1);
-        if (i >= count) return;
-        fn(i, ctx);
-      }
-    });
+  if (stats) {
+    stats[0] += nthreads;
+    stats[1] += wall.load();
+    stats[2] += cpu.load();
   }
-  for (auto& th : pool) th.join();
 }
 
 }  // namespace
@@ -162,10 +193,11 @@ extern "C" {
 // values: concatenated int32; offs[i]..offs[i]+counts[i] is block i;
 // ks[i] in [0, 31], or 32 (partition marker) with the 4 sub-block ks packed
 // byte-wise into ks4[i] (pass ks4 = nullptr when no block is partitioned).
+// stats: parallel_for's worker figures, or nullptr.
 void rice_block_words(const int32_t* values, const int64_t* offs,
                       const int32_t* counts, const int32_t* ks,
                       const int32_t* ks4, int64_t n_blocks,
-                      int64_t* out_words) {
+                      int64_t* out_words, int64_t* stats) {
   struct Ctx {
     const int32_t* values;
     const int64_t* offs;
@@ -191,16 +223,17 @@ void rice_block_words(const int32_t* values, const int64_t* offs,
         }
         c.out_words[i] = static_cast<int64_t>((bits + 31) / 32);
       },
-      &ctx);
+      &ctx, stats);
 }
 
 // Pass 2: pack. word_offs are exclusive prefix sums of rice_block_words
 // output; out must hold sum(words). Partitioned blocks (ks[i] == 32) pack
-// their sub-blocks bit-contiguously with per-sub ks from ks4[i].
+// their sub-blocks bit-contiguously with per-sub ks from ks4[i]. stats as
+// in rice_block_words.
 void rice_pack_blocks(const int32_t* values, const int64_t* offs,
                       const int32_t* counts, const int32_t* ks,
                       const int32_t* ks4, const int64_t* word_offs,
-                      int64_t n_blocks, uint32_t* out) {
+                      int64_t n_blocks, uint32_t* out, int64_t* stats) {
   struct Ctx {
     const int32_t* values;
     const int64_t* offs;
@@ -236,7 +269,7 @@ void rice_pack_blocks(const int32_t* values, const int64_t* offs,
         }
         bw.flush();
       },
-      &ctx);
+      &ctx, stats);
 }
 
 // Unpack: words concatenated; per block word_offs/word_counts,
@@ -278,7 +311,7 @@ void rice_unpack_blocks(const uint32_t* words, const int64_t* word_offs,
           o[j] = unzigzag(u);
         }
       },
-      &ctx);
+      &ctx, nullptr);
 }
 
 }  // extern "C"

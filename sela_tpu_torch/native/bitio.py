@@ -16,6 +16,7 @@ import numpy as np
 
 from ..format import RESIDUE_PARTS, RICE_PARTITION_MARKER
 from ..utils.build import build_library
+from ..utils.metrics import NULL_METRICS
 
 _SRC = os.path.join(os.path.dirname(__file__), "bitio.cpp")
 _lib = None
@@ -47,12 +48,15 @@ def load() -> ctypes.CDLL:
         u32p, ctypes.POINTER(ctypes.c_int64),
     ]
     lib.sela_scan_frames.restype = ctypes.c_int64
+    # the last argument of the two pack passes: int64[3] worker figures
+    # (parallel_for in bitio.cpp), or None
     lib.rice_block_words.argtypes = [
-        i32p, i64p, i32p, i32p, i32p, ctypes.c_int64, i64p,
+        i32p, i64p, i32p, i32p, i32p, ctypes.c_int64, i64p, ctypes.c_void_p,
     ]
     lib.rice_block_words.restype = None
     lib.rice_pack_blocks.argtypes = [
         i32p, i64p, i32p, i32p, i32p, i64p, ctypes.c_int64, u32p,
+        ctypes.c_void_p,
     ]
     lib.rice_pack_blocks.restype = None
     lib.sela_emit_frames.argtypes = [
@@ -73,12 +77,19 @@ def _ks4(ks4, n: int) -> np.ndarray:
 
 
 def pack_blocks_flat(values: np.ndarray, offs: np.ndarray, counts: np.ndarray,
-                     ks: np.ndarray, ks4: np.ndarray | None = None):
+                     ks: np.ndarray, ks4: np.ndarray | None = None,
+                     metrics=None):
     """Rice-pack blocks: block i = values[offs[i] : offs[i] + counts[i]]
     with parameter ks[i] (32 = partition marker, sub-ks byte-packed in
     ks4[i]). Returns (words uint32 concatenated, word count of each block
-    int64)."""
+    int64).
+
+    metrics: optional utils.metrics.Metrics sink: stages "rice_count" and
+    "rice_pack" around the two native passes, and their worker threads'
+    summed wall and on-CPU seconds as "bitio_workers" and
+    "bitio_workers_on_cpu" (n: workers run)."""
     lib = load()
+    m = metrics or NULL_METRICS
     n = len(counts)
     values = np.ascontiguousarray(values, dtype=np.int32)
     offs = np.ascontiguousarray(offs, dtype=np.int64)
@@ -89,12 +100,22 @@ def pack_blocks_flat(values: np.ndarray, offs: np.ndarray, counts: np.ndarray,
         raise ValueError("pack_blocks_flat: per-block arrays differ in length")
     if n and int((offs + counts).max()) > len(values):
         raise ValueError("pack_blocks_flat: block values out of range")
+    stats = None if m is NULL_METRICS else np.zeros(3, np.int64)
+    stats_p = None if stats is None else stats.ctypes.data
     word_counts = np.zeros(n, np.int64)
-    lib.rice_block_words(values, offs, counts, ks, k4, n, word_counts)
+    with m.stage("rice_count"):
+        lib.rice_block_words(values, offs, counts, ks, k4, n, word_counts,
+                             stats_p)
     word_offs = np.zeros(n, np.int64)
     np.cumsum(word_counts[:-1], out=word_offs[1:])
     out = np.zeros(int(word_counts.sum()), np.uint32)
-    lib.rice_pack_blocks(values, offs, counts, ks, k4, word_offs, n, out)
+    with m.stage("rice_pack"):
+        lib.rice_pack_blocks(values, offs, counts, ks, k4, word_offs, n, out,
+                             stats_p)
+    if stats is not None:
+        workers, wall_ns, cpu_ns = (int(v) for v in stats)
+        m.add_span("bitio_workers", wall_ns / 1e9, n=workers)
+        m.add_span("bitio_workers_on_cpu", cpu_ns / 1e9, n=workers)
     return out, word_counts
 
 

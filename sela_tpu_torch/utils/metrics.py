@@ -3,16 +3,39 @@
 Every codec entry point can be handed a Metrics sink that accumulates
 counters (frames, bytes in/out) and per-stage wall times, and can emit one
 JSON-lines record per operation. A few dict updates per device chunk; the
-device path is untouched.
+device path is untouched. NULL_METRICS, the default, records nothing.
 
 Stage-name semantics (CUDA work is asynchronous, so host wall-time buckets
 do NOT equal device busy-time):
+  encode: "host_frame" — framing and staging into pinned buffers;
+          "device_dispatch" — encode_step's launches and the async copies
+          back; "device_fetch" — wait on the chunk's CUDA event and the
+          int32 fallback fetch; "host_pack" — the chunk's Rice pack and
+          frame emit, which nests:
+            "pack_gather" — pack_frames' numpy before each block kind's
+                            native calls (two spans a chunk);
+            "rice_count"  — bitio's word-count pass (rice_block_words);
+            "rice_pack"   — bitio's pack pass (rice_pack_blocks);
+            "emit"        — serialize_frames (word slicing, emit_frames);
+          host_pack less those four is its self time.
+          Timed inside the native library, outside Python (add_span):
+          "bitio_workers" — the count and pack passes' worker threads,
+          wall seconds summed over workers (n: workers run);
+          "bitio_workers_on_cpu" — the same workers' on-CPU seconds
+          (CLOCK_THREAD_CPUTIME_ID, which some kernels advance only
+          in 10 ms ticks: a sum over many workers, not one call's).
   decode: "host_parse" — container scan; "host_unpack" — Rice unpack +
           scatter into pinned buffers + async H2D and kernel launches;
           "device_fetch" — wait on the chunk's CUDA event (device compute
           not hidden behind later host work + D2H PCM) and the host copy.
-For device busy-time use torch.profiler (`profiler_trace`) or CUDA
-events, not these.
+A nested stage's seconds are also counted in its parent's, so stage
+seconds do not add up to the operation's wall time.
+
+While a torch.profiler is recording, each stage is also a profiler range
+named "stage:<name>", so a trace shows the stages, with their start, end
+and nesting, on the clock of the device's kernels and copies. For device
+busy-time use torch.profiler (`profiler_trace`) or CUDA events, not the
+stage seconds.
 """
 from __future__ import annotations
 
@@ -20,7 +43,18 @@ import json
 import os
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+STAGE = "stage:"   # the prefix of a stage's profiler range
+
+
+def _profiler_range(name: str):
+    """A profiler range for stage `name` while a profiler records, else a
+    no-op (one C call where torch is loaded)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return nullcontext()
+    return torch.autograd.profiler.record_function(STAGE + name)
 
 
 class Metrics:
@@ -39,11 +73,16 @@ class Metrics:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with _profiler_range(name):
+                yield
         finally:
-            dt = time.perf_counter() - t0
-            self.stage_s[name] = self.stage_s.get(name, 0.0) + dt
-            self.stage_n[name] = self.stage_n.get(name, 0) + 1
+            self.add_span(name, time.perf_counter() - t0)
+
+    def add_span(self, name: str, seconds: float, n: int = 1) -> None:
+        """Add `n` spans of `seconds` in all, timed outside Python (the
+        native library's worker threads), to stage `name`."""
+        self.stage_s[name] = self.stage_s.get(name, 0.0) + seconds
+        self.stage_n[name] = self.stage_n.get(name, 0) + n
 
     def snapshot(self, op: str) -> dict:
         rec: dict = {"op": op, "ts": time.time()}
@@ -52,9 +91,6 @@ class Metrics:
         coded = self.counters.get("coded_bytes")
         if pcm and coded:
             rec["ratio"] = round(coded / pcm, 6)
-        total_s = sum(self.stage_s.values())
-        if pcm and total_s > 0:
-            rec["mb_per_s"] = round(pcm / total_s / 1e6, 3)
         frames = self.counters.get("frames")
         for name, s in self.stage_s.items():
             rec[f"{name}_s"] = round(s, 6)
@@ -78,6 +114,9 @@ class _NullMetrics(Metrics):
     @contextmanager
     def stage(self, name):
         yield
+
+    def add_span(self, name, seconds, n=1):
+        pass
 
     def emit(self, op):
         return {}
