@@ -82,8 +82,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. encode  — `sela_tpu_torch.codec.encoder.encode_wav` on the card (the
              encode main path) on the same three clips: each stream decodes
              on the card to the input (the 32-bit one through the oracle as
-             well), K1, K3, K4, K5 and K6 must have run once a chunk and K8
-             never, and the CD stream may be at most 1% larger than the
+             well), K1, K3, K4, K5 and K6 must have run once a chunk, the
+             Rice packer twice a chunk (v1 packs its plain blocks on the
+             card) and K8 never, and the CD stream may be at most 1% larger
+             than the
              oracle's; one profiled encode gives the device busy time,
              the device kernels launched and PyTorch's reduction and int64
              elementwise rows among them;
@@ -93,11 +95,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
              clip, whose v2 stream must be more than 1% smaller than its v1
              stream and at most 1% larger than the oracle's v2 stream, and
              must decode to the input through the oracle too; K8 and K6 run
-             once a chunk; one profiled encode of each clip;
+             once a chunk and the packer never (v2 packs on the host); one
+             profiled encode of each clip;
 9b. plain planning — the `cd_180s` v1 and `perc_20s` v2 encodes again with
              `pipeline.rice_plan` set to its plain version on the card (a
              check, not a fallback): the streams must be byte-identical;
-             the Rice packer must not have run in phases 7-9b;
+             the Rice packer must not have run in phase 7 (decode);
 10. packer — the device Rice packer (csrc/pack.cu) against its plain version
              on the card and against the host packer's words, exactly: (a)
              the residues of the `cd_180s` v1 encode's first 512-frame chunk
@@ -1345,7 +1348,8 @@ def reset_launches(k_lpc, k_iir, k_enc) -> None:
 
 
 def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
-                 container, k_lpc, k_iir, k_enc, name, chans, rate, bits,
+                 container, k_lpc, k_iir, k_enc, k_pack, name, chans, rate,
+                 bits,
                  oracle_bytes=None, max_vs_oracle=None, oracle_decode=False,
                  profile=None, warm=False) -> dict:
     """Encode on the card (the profile's path), decode on the card, check
@@ -1361,11 +1365,13 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
         encoder.encode_wav(w, device="cuda", profile=profile)
     m = Metrics()
     reset_launches(k_lpc, k_iir, k_enc)
+    k_pack.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     buf = encoder.encode_wav(w, device="cuda", metrics=m, profile=profile)
     wall = time.perf_counter() - t0
-    launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches}
+    launches = {"lpc": k_lpc.launches, **k_enc.launches, "iir": k_iir.launches,
+                "pack": k_pack.launches}
     pcm_mb = w.n_samples * w.n_channels * bits / 8 / 1e6
     h = container.parse_header(buf)
     sf, _ = bitio.scan_frames(buf, container.HEADER_SIZE, h.num_frames,
@@ -1383,7 +1389,9 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
     log(f"  ratio {len(buf) / (pcm_mb * 1e6):.4f}{vs}; {len(buf)} bytes; "
         f"partitioned subframe share {part_share:.4f}; mid/side frame share "
         f"{ms_share:.3f}; int32 residue fetches "
-        f"{m.counters.get('int32_fetch', 0)} chunks; order histogram {hist}")
+        f"{m.counters.get('int32_fetch', 0)} chunks; blocks packed on the "
+        f"card {m.counters.get('pack_blocks_device', 0)}, on the host "
+        f"{m.counters.get('pack_blocks_host', 0)}; order histogram {hist}")
     needed = ENCODE_KERNELS + (("quarter_counts",) if v2 else ())
     check(all(launches[k] > 0 for k in needed),
           f"{label}: a kernel was not launched on the encode path {launches}")
@@ -1392,6 +1400,11 @@ def phase_encode(torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
     check(launches["lpc"] == launches["ksel"] == per_chunk
           and launches["quarter_counts"] == (per_chunk if v2 else 0),
           f"{label}: not one launch a chunk of K1, K6 (and K8) {launches}")
+    # v1 packs its plain blocks on the card, two launches a chunk; v2 on
+    # the host
+    check(launches["pack"] == (0 if v2 else 2 * per_chunk),
+          f"{label}: the packer did not launch twice a chunk on v1 and never "
+          f"on v2 {launches}")
     check(v2 or part_share == 0.0, f"{label}: a v1 stream holds partitions")
     t0 = time.perf_counter()
     out = decoder.decode_sela(buf, device="cuda")
@@ -1542,10 +1555,66 @@ def phase_pack(torch, pipeline, encoder, ops_pack, ops_rice, k_pack, bitio,
         f"packer {host_s * 1e3:.3f} ms, bound {bms:.5f} ms ({by}): share "
         f"{share(bms, ms):.3f} warm, {share(bms, cold):.3f} cold; rows "
         + ", ".join(f"{b}: {t:.5f} ms" for b, t in rows_ms.items()))
+    at = pack_at_chunk(torch, encoder, ops_pack, k_pack, out, nv_f[:512])
     return dict(rows=len(sel), max_words=mw, max_abs_err=max(errs), exact=True,
                 ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bms, bound_by=by,
                 cold_share=share(bms, cold), rows_ms=rows_ms,
-                host_pack_ms=host_s * 1e3)
+                host_pack_ms=host_s * 1e3, pack_at=at)
+
+
+def pack_at_bound(nv: np.ndarray, N: int, words: int) -> tuple[float, str]:
+    """sela_pack_at on these rows: reads the values up to n_valid, k,
+    n_valid, cap and the 64-bit offset, writes the planned words and a
+    64-bit nwords a row; its per-value work."""
+    valid = np.clip(nv.astype(np.int64), 0, N).sum()
+    return bound_ms(valid * 4 + len(nv) * (4 + 4 + 4 + 8 + 8) + words * 4,
+                    valid * PACK_VALUE_OPS)
+
+
+def pack_at_chunk(torch, encoder, ops_pack, k_pack, out, nv_f) -> dict:
+    """The encoder's packer entry (sela_pack_at) as encode_wav launches it
+    on a chunk (encoder.device_pack): its two launches' words and counts
+    against the plain version, exactly, and against the plan's word counts;
+    each launch timed warm, beside its bound."""
+    dev = torch.device("cuda")
+    nv_d = torch.from_numpy(np.ascontiguousarray(nv_f)).to(dev)
+    got = encoder.device_pack(out, nv_d)
+    cpu = {k: v.cpu() for k, v in out.items()}
+    want = encoder.device_pack(cpu, nv_d.cpu())
+    torch.cuda.synchronize()
+    B = len(nv_f) * out["residues"].shape[1]
+    res = {}
+    for i, (kind, values, ks, counts, planned) in enumerate((
+            ("residues", out["residues"], out["k_res"], nv_d.repeat_interleave(
+                out["residues"].shape[1]), out["nw_res"]),
+            ("coefficients", out["qcoeffs"], out["k_coeff"], out["order"],
+             out["nw_coeff"]))):
+        words, nwords = got[2 * i], got[2 * i + 1]
+        plan = planned.reshape(B).cpu().numpy()
+        total = int(plan.sum())
+        plain = want[2 * i + 1].numpy() >= 0
+        exact = (torch.equal(nwords.cpu(), want[2 * i + 1])
+                 and torch.equal(words[:total].cpu(), want[2 * i][:total])
+                 and np.array_equal(nwords.cpu().numpy()[plain], plan[plain]))
+        check(exact, f"sela_pack_at ({kind}) differs from its plain version "
+              f"or the plan")
+        # the launch alone, on the inputs device_pack gives it
+        v = values.reshape(B, -1).contiguous()
+        k = ks.reshape(B).contiguous()
+        n = counts.reshape(B).contiguous()
+        caps = planned.reshape(B).contiguous()
+        offs = torch.cumsum(caps, 0, dtype=torch.int64) - caps
+        buf = torch.empty(v.numel(), dtype=torch.int32, device=dev)
+        ms = time_kernel(torch, lambda: k_pack.pack_blocks_at_cuda(
+            v, k, n, offs, caps, buf), 200)
+        bms, by = pack_at_bound(n.cpu().numpy(), v.shape[1], total)
+        log(f"sela_pack_at {kind} [{B}, {v.shape[1]}], {total} words, "
+            f"{int((~plain).sum())} rows left to the host: exact={exact}; "
+            f"kernel {ms:.5f} ms (warm L2), bound {bms:.5f} ms ({by}), share "
+            f"{share(bms, ms):.3f}")
+        res[kind] = dict(rows=B, words=total, ms=ms, bound_ms=bms,
+                         bound_by=by, share=share(bms, ms), exact=exact)
+    return res
 
 
 def timed_once(fn) -> float:
@@ -3154,7 +3223,7 @@ SWEEP_FILES_CHUNK = 2     # encode_files' chunk: groups share chunks
 
 
 def phase_sweep(encoder, decoder, corpus, multihost, WavData, Metrics,
-                BitstreamProfile, k_lpc, k_iir, k_enc) -> dict:
+                BitstreamProfile, k_lpc, k_iir, k_enc, k_pack) -> dict:
     """Phase 15: the encoder's input and profile space on the card,
     SWEEP_CARD_SEEDS seeds of the sweep generator, against the CPU and the
     oracle."""
@@ -3171,7 +3240,7 @@ def phase_sweep(encoder, decoder, corpus, multihost, WavData, Metrics,
              for c in sweep_cases(s)]
     pool = ProcessPoolExecutor(HOSTILE_WORKERS,
                                mp_context=multiprocessing.get_context("spawn"))
-    card, exact, fetched = {}, {}, {}
+    card, exact, fetched, host_blocks = {}, {}, {}, {}
     totals = collections.Counter()
     with pool:   # the CPU side in worker processes while the card runs
         refs = {c["name"]: pool.submit(sweep_reference, c) for c in cases}
@@ -3180,14 +3249,20 @@ def phase_sweep(encoder, decoder, corpus, multihost, WavData, Metrics,
             w = WavData(case["rate"], case["bits"], case["chans"])
             m = Metrics()
             reset_launches(k_lpc, k_iir, k_enc)
+            k_pack.launches = 0
             buf = encoder.encode_wav(w, device="cuda", metrics=m,
                                      **sweep_encode_args(case,
                                                          BitstreamProfile))
-            launches = {"lpc": k_lpc.launches, **k_enc.launches}
+            launches = {"lpc": k_lpc.launches, **k_enc.launches,
+                        "pack": k_pack.launches}
             totals.update(launches)
+            # v1 packs on the card, two launches a chunk (K6 launches once
+            # a chunk); v2 on the host
             check(all(launches[k] > 0 for k in ENCODE_KERNELS)
-                  and (launches["quarter_counts"] > 0) == v2,
+                  and (launches["quarter_counts"] > 0) == v2
+                  and launches["pack"] == (0 if v2 else 2 * launches["ksel"]),
                   f"{name}: the encode kernels launched {launches}")
+            host_blocks[name] = m.counters.get("pack_blocks_host", 0)
             out = decoder.decode_sela(buf, device="cuda")
             check((out.sample_rate, out.bits_per_sample)
                   == (case["rate"], case["bits"])
@@ -3256,17 +3331,23 @@ def phase_sweep(encoder, decoder, corpus, multihost, WavData, Metrics,
                         case["klass"]] += 1
         by_class[sweep_class(case)].append(
             (got, len(cpu), oracle, got == len(cpu) and card[name] == cpu,
-             fetched[name]))
+             fetched[name], host_blocks[name]))
     int32_cases = [c["name"] for c in cases if fetched[c["name"]]]
+    # v1 fetches residues only for blocks the host packs (escapes), which
+    # rice_k_max 0 forces and 16-bit residues at rice_k_max 30 never need
     check(any(fetched[c["name"]] for c in cases
-              if c["content"] == "square74"),
-          "the int32 residue fetch did not run on the square74 case")
+              if c["profile"].get("rice_k_max") == 0),
+          "no rice_k_max=0 case fetched its residues for its escape blocks")
+    check(not any(fetched[c["name"]] for c in cases
+                  if c["content"] == "square74"),
+          "a square74 case fetched its residues on the v1 path")
     for klass, rows in sorted(by_class.items()):
         log(f"  {klass}: {len(rows)} cases, card/CPU bytes "
             f"{sum(r[0] for r in rows)}/{sum(r[1] for r in rows)}, "
             f"{sum(r[3] for r in rows)} byte-identical to the CPU's, "
             f"card/oracle {sum(r[0] for r in rows) / sum(r[2] for r in rows):.4f}, "
-            f"int32 fetches {sum(r[4] for r in rows)}")
+            f"int32 fetches {sum(r[4] for r in rows)}, blocks packed on the "
+            f"host {sum(r[5] for r in rows)}")
     secs = time.perf_counter() - t_phase
     log(f"{len(cases)} cases ({SWEEP_CARD_SEEDS} seeds of {len(by_class)} "
         f"classes): each decodes to the input through the oracle and the "
@@ -3321,10 +3402,10 @@ def main(argv: list[str]) -> int:
     phase_build(k_lpc, k_iir, k_enc, k_pack, k_chain, bitio, build_log,
                 BUILD_DIR, nvcc)
     enc_args = (torch, encoder, decoder, ref_codec, WavData, Metrics, bitio,
-                container, k_lpc, k_iir, k_enc)
+                container, k_lpc, k_iir, k_enc, k_pack)
     v2 = BitstreamProfile(residue_partition=4)
     sweep_args = (encoder, decoder, corpus, multihost, WavData, Metrics,
-                  BitstreamProfile, k_lpc, k_iir, k_enc)
+                  BitstreamProfile, k_lpc, k_iir, k_enc, k_pack)
     if argv == ["--encode-sweep"]:   # phase 15 alone
         phase_sweep(*sweep_args)
         return 0
@@ -3357,12 +3438,14 @@ def main(argv: list[str]) -> int:
     clips.append(("int32_10s", c32, 48000, 32))
 
     log("== phase 7: decode end to end")
-    k_pack.launches = 0   # the packer is on none of phases 7-9b's paths
+    k_pack.launches = 0   # the packer is on no decode path
     e2e_args = (torch, decoder, ref_codec, WavData, Metrics, bitio, container,
                 k_lpc, k_iir)
     decoded = {name: phase_e2e(*e2e_args, name, chans, rate, bits,
                                warm=name == "cd_180s")
                for name, chans, rate, bits in clips}
+    log(f"packer launches in phase 7 (decode_sela): {k_pack.launches}")
+    check(k_pack.launches == 0, "the packer ran on the decode path")
 
     log("== phase 8: encode end to end")
     encoded = {name: phase_encode(
@@ -3409,9 +3492,6 @@ def main(argv: list[str]) -> int:
                   f"{label}: the plain planning gives another stream")
     finally:
         pipeline.rice_plan = kernel_plan
-    log(f"packer launches in phases 7-9b (encode_wav and decode_sela): "
-        f"{k_pack.launches}")
-    check(k_pack.launches == 0, "the packer ran on the encode or decode path")
 
     pack = phase_pack(torch, pipeline, encoder, ops_pack, ops_rice, k_pack,
                       bitio, cd)
@@ -3464,11 +3544,14 @@ def main(argv: list[str]) -> int:
         entry("quarter_counts", "quarter_counts.cu",
               "sela_tpu/kernels/encode.py:401", k8,
               enc_v2["launches"]["quarter_counts"]),
-        # the packer's path is the bench's A/B: encode_wav packs on the host
+        # v1 encode_wav packs on the card (sela_pack_at, 2 a chunk); the
+        # bench's A/B runs sela_pack
         entry("pack_blocks", "pack.cu",
               "sela_tpu/ops/pack.py:44 (jnp, not a Pallas kernel)", pack,
-              paths["device_pack_launches"],
-              launches_by_path={"encode_wav and decode_sela": 0,
+              enc_main["launches"]["pack"],
+              launches_by_path={"encode": enc_main["launches"]["pack"],
+                                "encode_v2": enc_v2["launches"]["pack"],
+                                "decode_sela": 0,
                                 "bench_device_pack": paths[
                                     "device_pack_launches"]}),
         # the chain's path is the roofline tool (phase 13 (c))

@@ -13,6 +13,17 @@
 // reports its true count. Escape (k = 31) and partitioned blocks are not
 // plain blocks; the wrapper refuses them, and a row whose k is outside
 // [0, 30] gets nwords -1 and zero words.
+//
+// Two entries. `sela_pack` writes row r at words[r][0 .. max_words) of a
+// [rows, max_words] array (the bench's A/B). `sela_pack_at` is the
+// encoder's: codec/encoder.py::encode_wav launches it twice a chunk of the
+// v1 profile (the residue blocks, then the coefficient blocks), and row r
+// goes to words[offs[r] .. offs[r] + cap[r]) of one flat buffer, offs
+// being the exclusive cumsum of K6's planned word counts and cap[r] the
+// row's own, so the chunk's words come back to the host already in emit
+// order. A row whose k is outside [0, 30] writes nothing there and gets
+// nwords -1: the host packs it and fills its gap, and compares every
+// nwords with the plan.
 // NORMATIVE: bit-identical to the plain torch version
 // (ops/pack.py::pack_blocks_reference) for every int32 value, 0 <= n <=
 // 2,048 and 0 <= k <= 30. Offsets are 64-bit: forced small k on wide values
@@ -37,8 +48,9 @@
 // sums their code lengths (u >> k) + 1 + k in 64 bits; a block-wide
 // exclusive scan (warp shuffles, then the 8 warp sums) gives each thread its
 // first bit offset; each value atomicOrs its pattern into a buffer of
-// max_words words, in shared memory where max_words * 4 bytes fit in 48 KB
-// (every plain block of a 2,048-sample frame at its optimal k: at most
+// max_words (cap[r]) words, in shared memory where max_words * 4 bytes fit
+// in 48 KB (sela_pack_at: where cap[r] fits the launch's buffer of n + 1
+// words; every plain block of a 2,048-sample frame at its optimal k: at most
 // 2,048 * 32 + 32 bits, 2,049 words), else in the row of the output itself;
 // after a barrier, each word is written as ~buffer & the mask of the bits
 // the row has in it.
@@ -85,28 +97,18 @@ __device__ __forceinline__ uint64_t block_exclusive_scan(
   return (warp == 0 ? 0 : warp_sums[warp - 1]) + x - v;
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(THREADS)
-pack_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ ks,
-            const int32_t* __restrict__ n_valid, uint32_t* __restrict__ words,
-            int64_t* __restrict__ nwords, int n, int max_words) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint64_t warp_sums[WARPS];
-  const int row = blockIdx.x, t = threadIdx.x;
-  uint32_t* out = words + static_cast<int64_t>(row) * max_words;
-  uint32_t* buf = kShared ? smem : out;
-  const int k = ks[row];
-  if (k < 0 || k > K_MAX) {   // not a plain block (the wrapper refuses it)
-    for (int w = t; w < max_words; w += THREADS) out[w] = 0;
-    if (t == 0) nwords[row] = -1;
-    return;
-  }
-  const int nv = min(max(n_valid[row], 0), n);
-  for (int w = t; w < max_words; w += THREADS) buf[w] = 0;
+// Packs one row's block into buf[0, cap) (shared memory, or `out` itself)
+// and writes it to out[0, cap) as ~buf under the mask of the row's bit
+// count; thread 0 stores the row's true word count in *nwords. The caller
+// has checked 0 <= k <= K_MAX.
+__device__ __forceinline__ void pack_row(
+    const int32_t* __restrict__ x, int k, int nv, int n, uint32_t* buf,
+    uint32_t* out, uint64_t cap, uint64_t* warp_sums, int64_t* nwords) {
+  const int t = threadIdx.x;
+  for (uint64_t w = t; w < cap; w += THREADS) buf[w] = 0;
 
   const int per = (n + THREADS - 1) / THREADS;
   const int s0 = t * per;
-  const int32_t* x = values + static_cast<int64_t>(row) * n;
   uint32_t u[PER];
   uint64_t bits = 0;   // this thread's code lengths: < 8 (2^32 + 31)
 #pragma unroll
@@ -122,7 +124,6 @@ pack_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ ks,
   uint64_t off = block_exclusive_scan(bits, warp_sums, &total);
 
   const uint32_t kmask = (1u << k) - 1u;
-  const uint64_t cap = static_cast<uint64_t>(max_words);
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     if (i < per && s0 + i < nv) {
@@ -143,14 +144,66 @@ pack_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ ks,
     }
   }
   __syncthreads();
-  for (int w = t; w < max_words; w += THREADS) {
+  for (uint64_t w = t; w < cap; w += THREADS) {
     const int64_t left = static_cast<int64_t>(total) - 32 * static_cast<int64_t>(w);
     const uint32_t mask = left >= 32 ? FULL
                         : left <= 0  ? 0u
                                      : ~(FULL >> static_cast<int>(left));
     out[w] = ~buf[w] & mask;
   }
-  if (t == 0) nwords[row] = static_cast<int64_t>((total + 31) >> 5);
+  if (t == 0) *nwords = static_cast<int64_t>((total + 31) >> 5);
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(THREADS)
+pack_kernel(const int32_t* __restrict__ values, const int32_t* __restrict__ ks,
+            const int32_t* __restrict__ n_valid, uint32_t* __restrict__ words,
+            int64_t* __restrict__ nwords, int n, int max_words) {
+  extern __shared__ uint32_t smem[];
+  __shared__ uint64_t warp_sums[WARPS];
+  const int row = blockIdx.x, t = threadIdx.x;
+  uint32_t* out = words + static_cast<int64_t>(row) * max_words;
+  const int k = ks[row];
+  if (k < 0 || k > K_MAX) {   // not a plain block (the wrapper refuses it)
+    for (int w = t; w < max_words; w += THREADS) out[w] = 0;
+    if (t == 0) nwords[row] = -1;
+    return;
+  }
+  pack_row(values + static_cast<int64_t>(row) * n, k,
+           min(max(n_valid[row], 0), n), n, kShared ? smem : out, out,
+           static_cast<uint64_t>(max_words), warp_sums, nwords + row);
+}
+
+// The encoder's entry: row r's block goes to words[offs[r], offs[r] +
+// cap[r]) of one flat buffer of `total` words, cap[r] being its planned
+// word count, so a wrong plan cannot write into the next row's words (nor
+// past the buffer: the span is clipped to [0, total)). Rows with k outside
+// [0, 30] (the escape 31, the partition marker 32) write nothing and get
+// nwords -1. A row packs in shared memory where cap[r] <= smem_words, else
+// in its span of the output.
+__global__ void __launch_bounds__(THREADS)
+pack_at_kernel(const int32_t* __restrict__ values,
+               const int32_t* __restrict__ ks,
+               const int32_t* __restrict__ n_valid,
+               const int64_t* __restrict__ offs,
+               const int32_t* __restrict__ caps, uint32_t* __restrict__ words,
+               int64_t* __restrict__ nwords, int n, int64_t total,
+               int smem_words) {
+  extern __shared__ uint32_t smem[];
+  __shared__ uint64_t warp_sums[WARPS];
+  const int row = blockIdx.x;
+  const int k = ks[row];
+  if (k < 0 || k > K_MAX) {
+    if (threadIdx.x == 0) nwords[row] = -1;
+    return;
+  }
+  const int64_t off = offs[row];
+  const int64_t room = off >= 0 && off < total ? total - off : 0;
+  const int64_t cap = min(static_cast<int64_t>(max(caps[row], 0)), room);
+  uint32_t* out = words + (room ? off : 0);
+  pack_row(values + static_cast<int64_t>(row) * n, k,
+           min(max(n_valid[row], 0), n), n, cap <= smem_words ? smem : out,
+           out, static_cast<uint64_t>(cap), warp_sums, nwords + row);
 }
 
 }  // namespace
@@ -175,6 +228,27 @@ extern "C" int sela_pack(const void* values, const void* k, const void* n_valid,
       pack_kernel<false><<<n_rows, THREADS, 0, s>>>(v, kk, nv, w, nw, n,
                                                     max_words);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sela_pack_at(const void* values, const void* k,
+                            const void* n_valid, const void* offs,
+                            const void* caps, void* words, void* nwords,
+                            int n_rows, int n, long long total,
+                            int smem_words, void* stream) {
+  if (n < 0 || n > MAX_N || total < 0 || smem_words < 0
+      || smem_words > SMEM_WORDS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows > 0) {
+    pack_at_kernel<<<n_rows, THREADS, smem_words * sizeof(uint32_t),
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(values), static_cast<const int32_t*>(k),
+        static_cast<const int32_t*>(n_valid),
+        static_cast<const int64_t*>(offs), static_cast<const int32_t*>(caps),
+        static_cast<uint32_t*>(words), static_cast<int64_t*>(nwords), n,
+        static_cast<int64_t>(total), smem_words);
   }
   return static_cast<int>(cudaGetLastError());
 }

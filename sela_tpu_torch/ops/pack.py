@@ -17,13 +17,16 @@ wide values), so the two agree only below that.
 
 `pack_blocks` is the dispatching wrapper of the kernel (csrc/pack.cu,
 launcher kernels/pack.py); `pack_blocks_reference` is its plain version.
+`pack_blocks_at` (plain version `pack_blocks_at_reference`) writes each row
+at a given word offset of one flat buffer: the encoder's entry, which packs
+a v1 chunk's blocks on the card (codec/encoder.py).
 """
 from __future__ import annotations
 
 import torch
 
 from ..format import FRAME_SIZE, RICE_K_MAX
-from ..kernels.pack import pack_blocks_cuda
+from ..kernels.pack import pack_blocks_at_cuda, pack_blocks_cuda
 from .rice import zigzag
 
 _U32 = 0xFFFFFFFF
@@ -106,3 +109,87 @@ def pack_blocks(values: torch.Tensor, k: torch.Tensor, n_valid: torch.Tensor,
              < n_valid.to(torch.int64)[:, None])
     u = torch.where(valid, zigzag(values), 0)
     return pack_blocks_reference(u, k, n_valid, max_words)
+
+
+def pack_blocks_at_reference(values: torch.Tensor, k: torch.Tensor,
+                             n_valid: torch.Tensor, offs: torch.Tensor,
+                             caps: torch.Tensor,
+                             words: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's sela_pack_at entry, on CPU tensors:
+    writes words (in place) and returns nwords, as pack_blocks_at says."""
+    B, N = values.shape
+    T = words.numel()
+    plain = (k >= 0) & (k <= RICE_K_MAX)
+    ks = torch.where(plain, k, 0)
+    nv = torch.where(plain, n_valid.clamp(0, N), 0)
+    valid = torch.arange(N)[None, :] < nv.to(torch.int64)[:, None]
+    u = torch.where(valid, zigzag(values), 0)
+    # a row's span: its cap, clipped to the buffer; none for other rows
+    room = torch.where((offs >= 0) & (offs < T), T - offs, 0)
+    cap = torch.where(plain, torch.minimum(caps.clamp(min=0).to(torch.int64),
+                                           room), 0)
+    span = int(cap.max()) if B else 0
+    dense, nwords = pack_blocks_reference(u, ks, nv, max(span, 1))
+    cols = torch.arange(span)
+    sel = cols[None, :] < cap[:, None]
+    words[(offs[:, None] + cols[None, :])[sel]] = dense[:, :span][sel]
+    return torch.where(plain, nwords, -1)
+
+
+def pack_blocks_at(values: torch.Tensor, k: torch.Tensor,
+                   n_valid: torch.Tensor, offs: torch.Tensor,
+                   caps: torch.Tensor, total_words: int, out=None):
+    """values [B, N] int32 (N <= 2048), k, n_valid and caps [B] int32, offs
+    [B] int64 -> (words [total_words] int32 holding the uint32 bits, nwords
+    [B] int64).
+
+    A row with 0 <= k <= RICE_K_MAX writes its block,
+    ref.rice.encode(values[b, :n_valid[b]], k[b])[1] cut or zero-padded to
+    caps[b] words, at words[offs[b] : offs[b] + caps[b]] (clipped to the
+    buffer), and its true word count to nwords[b]. Other rows (k = 31, the
+    escape; 32, the partition marker) get nwords -1 and write nothing:
+    their spans keep what `out` held. out: the [total_words] int32 buffer
+    to write into (default: a new one, zeros on the CPU, uninitialized on
+    the card).
+
+    The encoder's use (codec/encoder.py::device_pack): caps the planned
+    word counts and offs their exclusive cumsum, so the words land in emit
+    order and a wrong plan shows in nwords without touching the next row.
+    Checks dtypes, shapes, contiguity and devices, and reads no value, so
+    it adds no sync. On CPU tensors this runs the plain version; on CUDA
+    tensors it launches the kernel (csrc/pack.cu, sela_pack_at) or raises —
+    there is no fallback."""
+    ints = (values, k, n_valid, caps)
+    if any(t.dtype != torch.int32 for t in ints) or offs.dtype != torch.int64:
+        raise TypeError(f"pack_blocks_at needs int32 values, k, n_valid and "
+                        f"caps and int64 offs, got {values.dtype}, {k.dtype}, "
+                        f"{n_valid.dtype}, {caps.dtype} and {offs.dtype}")
+    B = values.shape[0] if values.dim() == 2 else -1
+    if (values.dim() != 2 or values.shape[1] > FRAME_SIZE
+            or any(t.shape != (B,) for t in (k, n_valid, offs, caps))):
+        raise ValueError(f"pack_blocks_at needs values [B, N <= {FRAME_SIZE}] "
+                         f"and k, n_valid, offs and caps [B], got "
+                         f"{tuple(values.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(n_valid.shape)}, {tuple(offs.shape)} and "
+                         f"{tuple(caps.shape)}")
+    if not isinstance(total_words, int) or total_words < 0:
+        raise ValueError(f"pack_blocks_at: total_words must be an int >= 0, "
+                         f"got {total_words!r}")
+    dev = values.device
+    if out is None:
+        make = torch.zeros if dev.type == "cpu" else torch.empty
+        out = make(total_words, dtype=torch.int32, device=dev)
+    elif out.dtype != torch.int32 or out.shape != (total_words,):
+        raise ValueError(f"pack_blocks_at: out must be int32 [{total_words}], "
+                         f"got {out.dtype} {tuple(out.shape)}")
+    tensors = ints + (offs, out)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("pack_blocks_at needs contiguous tensors")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"pack_blocks_at needs every tensor on {dev}, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type == "cuda":
+        return out, pack_blocks_at_cuda(values, k, n_valid, offs, caps, out)
+    if dev.type != "cpu":
+        raise ValueError(f"pack_blocks_at: unsupported device {dev}")
+    return out, pack_blocks_at_reference(values, k, n_valid, offs, caps, out)

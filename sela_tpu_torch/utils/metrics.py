@@ -10,14 +10,23 @@ do NOT equal device busy-time):
   encode: "host_frame" — framing and staging into pinned buffers;
           "device_dispatch" — encode_step's launches and the async copies
           back; "device_fetch" — wait on the chunk's CUDA event and the
-          int32 fallback fetch; "host_pack" — the chunk's Rice pack and
-          frame emit, which nests:
-            "pack_gather" — pack_frames' numpy before each block kind's
-                            native calls (two spans a chunk);
+          int32 fallback fetch; "host_pack" — the chunk's Rice pack (on
+          the v1 path on the card: the blocks the card left, and the
+          splice) and frame emit, which nests:
+            "pack_gather" — the PLAN columns, and the numpy before each
+                            block kind's native calls (pack_frames: two
+                            spans a chunk; splice_frames: one, and one a
+                            kind with blocks left to the host);
             "rice_count"  — bitio's word-count pass (rice_block_words);
             "rice_pack"   — bitio's pack pass (rice_pack_blocks);
             "emit"        — serialize_frames (word slicing, emit_frames);
-          host_pack less those four is its self time.
+          host_pack less those four is its self time. bitio's two passes
+          run only where the host packs: v2, the CPU, encode_files, and
+          the escape blocks (k = 31) of the v1 path on the card.
+          Counters: "pack_blocks_device" / "pack_blocks_host" — Rice
+          blocks (residue and coefficient blocks together) packed on the
+          card / by bitio; "int32_fetch" — chunks whose int32 residues
+          were fetched after their event.
           Timed inside the native library, outside Python (add_span):
           "bitio_workers" — the count and pack passes' worker threads,
           wall seconds summed over workers (n: workers run);

@@ -167,7 +167,8 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     package's Metrics.snapshot given the same counters and stages, less its
     `mb_per_s` (PCM over the sum of stages, which nested stages and worker
     seconds make meaningless). Encode's stages include host_pack's spans
-    and bitio's worker figures."""
+    and bitio's worker figures, and its record the port's own counter of
+    the blocks bitio packed (pack_blocks_host: every block, on the CPU)."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -187,8 +188,12 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
                        "emit", "bitio_workers", "bitio_workers_on_cpu"}
                       if op == "encode" else
                       {"host_parse", "host_unpack", "device_fetch"})
+    counters = ("frames", "pcm_bytes", "coded_bytes")
+    if op == "encode":
+        assert rec["pack_blocks_host"] == 2 * 3 * 2
+        counters += ("pack_blocks_host",)
     m = JaxMetrics()
-    for k in ("frames", "pcm_bytes", "coded_bytes"):
+    for k in counters:
         m.count(k, rec[k])
     for name in stages:
         m.stage_s[name] = rec[f"{name}_s"]

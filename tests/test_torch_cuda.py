@@ -476,9 +476,11 @@ def test_sweep_edges_encode_on_card(dev, kind):
     """chip_smoke.py's sweep contents at two of the encoder's edges: an
     8-bit 3-channel clip at frame size 33 (K3's and K5's scalar staging, a
     channel left unpaired), and a 16-bit full-scale square wave of period
-    74, whose residues leave int16, so each chunk fetches its int32
-    residues. Each stream decodes exactly through the oracle and the
-    port on the card, and is within 0.5% of the CPU's."""
+    74, whose residues leave int16. Both are v1 encodes, which pack on the
+    card: residues cross to the host only for escape blocks, which 16-bit
+    residues at rice_k_max 30 never need, so no chunk fetches its int32
+    residues. Each stream decodes exactly through the oracle and the port
+    on the card, and is within 0.5% of the CPU's."""
     import chip_smoke as cs
     from sela_tpu_torch.codec.decoder import decode_sela
     from sela_tpu_torch.codec.encoder import encode_wav
@@ -508,8 +510,8 @@ def test_sweep_edges_encode_on_card(dev, kind):
     assert {k: v for k, v in k_enc.launches.items()} == {
         "autocorr": chunks, "levinson": chunks, "fir_rice": chunks,
         "ksel": chunks, "quarter_counts": 0}, k_enc.launches
-    fetched = m.counters.get("int32_fetch", 0)
-    assert fetched == (chunks if kind == "16bit_square74" else 0)
+    assert m.counters.get("int32_fetch", 0) == 0
+    assert m.counters["pack_blocks_device"] == 2 * frames * len(chans)
     cpu = encode_wav(w, frame_size=fs, chunk_frames=2, device="cpu")
     assert abs(len(buf) - len(cpu)) <= 0.005 * len(cpu)
     for out in (decode_sela(buf, device="cuda"), ref_codec.decode_sela(buf)):
@@ -623,6 +625,203 @@ def test_pack_wrapper_refuses_bad_inputs_on_card(dev):
                     k, k, 8)
     with pytest.raises(ValueError):
         pack_blocks(v, k, k, 0)
+    assert k_pack.launches == before
+
+
+PACK_AT_KINDS = ["optimal", "random", "full30", "escapes", "caps"]
+
+
+@pytest.mark.parametrize("kind", PACK_AT_KINDS)
+def test_pack_at_kernel_matches_plain(dev, kind):
+    """sela_pack_at against its plain version, word for word over the
+    whole flat buffer (gaps filled alike beforehand): rows at their optimal
+    k, at random k, full-scale int32 at k = 30, rows at k = 31 and 32 that
+    keep their gaps, and caps below, at and above the true counts, past the
+    shared buffer's n + 1 words and past the end of the buffer."""
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.ops.pack import pack_blocks, pack_blocks_at
+
+    rng = np.random.default_rng(len(kind) + 17)
+    B, N = 1027, 2048
+    vals, ks, nv = _pack_rows(rng, B, N, 30 if kind == "full30" else None)
+    if kind == "full30":
+        vals = rng.integers(-(1 << 31), 1 << 31, (B, N),
+                            dtype=np.int64).astype(np.int32)
+    if kind == "random":
+        ks = rng.integers(0, 31, B).astype(np.int32)
+    if kind == "escapes":
+        ks[2::9], ks[5::13] = 31, 32
+    true = pack_blocks(*(torch.from_numpy(a) for a in (vals, np.clip(
+        ks, 0, 30).astype(np.int32), nv)), 1)[1].numpy()
+    caps = true.astype(np.int32)
+    if kind == "caps":   # short, long, over n + 1 = 2,049 words, zero
+        caps[::4] = np.maximum(caps[::4] - 7, 0)
+        caps[1::4] += 11
+        caps[2::50] = 2049 + rng.integers(1, 3000, len(caps[2::50]))
+        caps[3::40] = 0
+    offs = np.concatenate([[0], np.cumsum(caps.astype(np.int64))[:-1]])
+    total = int(caps.sum()) - (5 if kind == "caps" else 0)
+    fill = torch.full((total,), 0x3C3C3C3C, dtype=torch.int32)
+    args = [torch.from_numpy(a) for a in (vals, ks, nv, offs, caps)]
+    want = pack_blocks_at(*args, total, out=fill.clone())
+    before = k_pack.launches
+    got = pack_blocks_at(*[t.to(dev) for t in args], total,
+                         out=fill.clone().to(dev))
+    assert k_pack.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    plain = (ks >= 0) & (ks <= 30)
+    assert np.array_equal(want[1].numpy()[plain], true[plain])
+    assert (want[1].numpy()[~plain] == -1).all()
+
+
+def test_pack_at_wrapper_reads_no_device_value_and_refuses(dev):
+    """The wrapper refuses a mixed-device call before any launch, and on
+    the card it launches without a sync (no device value is read)."""
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.ops.pack import pack_blocks_at
+
+    v = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    k = torch.zeros(4, dtype=torch.int32, device=dev)
+    offs = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = k_pack.launches
+    with pytest.raises(ValueError):
+        pack_blocks_at(v, k.cpu(), k, offs, k, 8)
+    with pytest.raises(ValueError):
+        pack_blocks_at(v, k, k, offs, k, 8,
+                       out=torch.zeros(8, dtype=torch.int32))
+    assert k_pack.launches == before
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pack_blocks_at(v, k, k, offs, k, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert k_pack.launches == before + 1
+
+
+def _host_packed_stream(w, chunk_frames: int, profile) -> bytes:
+    """encode_wav's stream with every block packed on the host: encode_step
+    on the card chunk by chunk, as encode_wav runs it, then pack_frames and
+    serialize_frames on its fetched outputs."""
+    from sela_tpu_torch.codec import encoder
+    from sela_tpu_torch.codec.pipeline import encode_step
+    from sela_tpu_torch.ref import container
+
+    x, nv = encoder.frame_batches(w.channels, profile.frame_size)
+    F, C, _ = x.shape
+    frames = []
+    for s in range(0, F, chunk_frames):
+        xs, ns = x[s:s + chunk_frames], nv[s:s + chunk_frames]
+        out = encode_step(
+            torch.from_numpy(np.ascontiguousarray(xs)).cuda(),
+            torch.from_numpy(ns).cuda(),
+            allow_ms=profile.mid_side != "off" and w.bits_per_sample <= 24,
+            max_order=profile.max_order, rice_k_max=profile.rice_k_max,
+            partition=profile.residue_partition,
+            ms_mode="exact" if profile.mid_side == "exact" else "est")
+        plan = torch.cat([torch.stack([out[k] for k in encoder.PLAN], -1),
+                          out["qcoeffs"]], dim=-1).cpu().numpy()
+        packed = encoder.pack_frames(plan, out["residues"].cpu().numpy(), ns)
+        frames.append(encoder.serialize_frames(packed, ns, 0, len(ns)))
+    return container.serialize_file(
+        container.SelaHeader(w.sample_rate, w.bits_per_sample, C, F), frames)
+
+
+def _device_pack_case(w, profile, chunk_frames: int = 3):
+    """encode_wav on the card against _host_packed_stream: byte for byte;
+    returns encode_wav's Metrics and the packer's launches."""
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    m = Metrics()
+    before = k_pack.launches
+    buf = encode_wav(w, chunk_frames=chunk_frames, profile=profile,
+                     device="cuda", metrics=m)
+    launches = k_pack.launches - before
+    assert buf == _host_packed_stream(w, chunk_frames, profile)
+    return m, launches
+
+
+def _sweep_classes():
+    import chip_smoke as cs
+
+    return [k[0] for k in cs.SWEEP_CLASSES]
+
+
+@pytest.mark.parametrize("klass", _sweep_classes())
+def test_v1_device_pack_equals_host_pack_over_the_sweep(dev, klass):
+    """Every case of one seed of chip_smoke.py's encode sweep in a class
+    (8-32 bits, 1-6 channels, frame sizes 32-2,048, every profile knob,
+    rice_k_max 0 and 7 among them, whose escape blocks the host packs):
+    encode_wav's stream on the card is the host packer's over the same
+    encode_step outputs. v1 launches the packer twice a chunk, v2 never;
+    every block is counted once, on the card or on the host."""
+    import chip_smoke as cs
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref.wav import WavData
+
+    cases = [c for c in cs.sweep_cases(cs.SWEEP_SEED) if c["klass"] == klass]
+    assert cases
+    for case in cases:
+        profile = BitstreamProfile(frame_size=case["frame_size"],
+                                   **case["profile"])
+        w = WavData(case["rate"], case["bits"], case["chans"])
+        m, launches = _device_pack_case(w, profile)
+        F = -(-len(case["chans"][0]) // case["frame_size"])
+        v1 = profile.residue_partition == 1
+        assert launches == (2 * -(-F // 3) if v1 else 0), case["name"]
+        blocks = 2 * F * len(case["chans"])
+        assert (m.counters.get("pack_blocks_device", 0)
+                + m.counters["pack_blocks_host"]) == blocks, case["name"]
+        if not v1:
+            assert "pack_blocks_device" not in m.counters
+        if v1 and case["profile"].get("rice_k_max") == 0:
+            assert m.counters["pack_blocks_host"] > 0, case["name"]
+
+
+def test_v1_device_pack_on_a_cd_track(dev):
+    """A 3-minute CD track (8 chunks of 512 frames): the stream is the host
+    packer's, every block is packed on the card, the packer launches 16
+    times, no residue crosses to the host, and neither bitio pass runs.
+    Under rice_k_max=0 the host packs escape blocks."""
+    import chip_smoke as cs
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref.wav import WavData
+
+    w = WavData(44100, 16, cs.make_track(180.0, 44100, 16, seed=0))
+    m, launches = _device_pack_case(w, BitstreamProfile(), chunk_frames=512)
+    assert launches == 16
+    assert m.counters["pack_blocks_device"] == 2 * 3876 * 2
+    assert m.counters["pack_blocks_host"] == 0
+    assert "int32_fetch" not in m.counters
+    assert not {"rice_count", "rice_pack", "bitio_workers"} & set(m.stage_s)
+    short = WavData(44100, 16, [c[:44100 * 5] for c in w.channels])
+    m, launches = _device_pack_case(short, BitstreamProfile(rice_k_max=0),
+                                    chunk_frames=512)
+    assert launches == 2 and m.counters["pack_blocks_host"] > 0
+    assert m.counters["int32_fetch"] == 1
+
+
+def test_packer_launches_on_v1_encode_only(dev):
+    """kernels/pack.py::launches rises by 2 a chunk on a v1 encode and by 0
+    on a v2 encode and on a decode."""
+    from sela_tpu_torch.codec.decoder import decode_sela
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.kernels import pack as k_pack
+    from sela_tpu_torch.ref.wav import WavData
+
+    rng = np.random.default_rng(12)
+    w = WavData(44100, 16, list(_audio(rng, 2, 2048 * 7 + 5)))
+    before = k_pack.launches
+    buf = encode_wav(w, chunk_frames=2, device="cuda")
+    assert k_pack.launches - before == 2 * 4
+    before = k_pack.launches
+    encode_wav(w, chunk_frames=2, device="cuda",
+               profile=BitstreamProfile(residue_partition=4))
+    decode_sela(buf, device="cuda")
     assert k_pack.launches == before
 
 
