@@ -20,6 +20,7 @@ from ..format import FRAME_SIZE, MAX_ORDER
 from ..ref import container
 from ..ref.wav import WavData
 from ..utils.device import resolve_device
+from ..utils.metrics import NULL_METRICS
 from .decoder import DEFAULT_CHUNK_FRAMES, merge_scans, scan, unpack
 from .encoder import (PLAN, check_frame_size, frame_batches, pack_frames,
                       serialize_frames)
@@ -35,7 +36,8 @@ def _groups(keys) -> dict:
 
 
 def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
-                 frame_size: int = FRAME_SIZE, device=None) -> list[bytes]:
+                 frame_size: int = FRAME_SIZE, device=None,
+                 metrics=None) -> list[bytes]:
     """Encode WavData files to .sela bytes on `device` (default: the CUDA
     card), the files of a group sharing device chunks; the default profile
     at `frame_size` samples a frame. Each file's stream is its encode_wav
@@ -43,7 +45,12 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
 
     device="cpu" runs the plain PyTorch versions of the kernels; with no
     device named and no CUDA available this raises. frame_size outside
-    [32, FRAME_SIZE] raises (encoder.check_frame_size).
+    [32, FRAME_SIZE] raises (encoder.check_frame_size). metrics: optional
+    utils.metrics.Metrics sink (stages host_frame / device_dispatch /
+    device_fetch / host_pack, and inside host_pack pack_gather /
+    rice_count / rice_pack / emit; counters files, groups, chunks,
+    int32_fetch, pack_blocks_host, pcm_bytes, coded_bytes;
+    utils/metrics.py).
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
@@ -52,37 +59,54 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
         if w.n_samples == 0:
             raise ValueError(f"file {i}: empty audio")
     dev = resolve_device(device)
+    m = metrics or NULL_METRICS
     results: list[bytes | None] = [None] * len(wavs)
     groups = _groups((w.n_channels, w.bits_per_sample <= 24) for w in wavs)
     for (C, allow_ms), idxs in groups.items():
-        framed = [frame_batches(wavs[i].channels, frame_size) for i in idxs]
-        x_all = np.concatenate([x for x, _ in framed])
-        nv_all = np.concatenate([nv for _, nv in framed])
+        with m.stage("host_frame"):
+            framed = [frame_batches(wavs[i].channels, frame_size)
+                      for i in idxs]
+            x_all = np.concatenate([x for x, _ in framed])
+            nv_all = np.concatenate([nv for _, nv in framed])
         plans, residues = [], []
         for start in range(0, len(x_all), chunk_frames):
-            out = encode_step(
-                torch.from_numpy(x_all[start : start + chunk_frames]).to(dev),
-                torch.from_numpy(nv_all[start : start + chunk_frames]).to(dev),
-                allow_ms=allow_ms)
-            plans.append(torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
-                                    out["qcoeffs"]], dim=-1).cpu().numpy())
-            # int16 wire for the residue fetch when every frame's fits
-            wire16 = bool(out["fits16"].all())
-            residues.append(out["res16" if wire16 else "residues"].cpu().numpy())
+            stop = start + chunk_frames
+            with m.stage("device_dispatch"):
+                out = encode_step(torch.from_numpy(x_all[start:stop]).to(dev),
+                                  torch.from_numpy(nv_all[start:stop]).to(dev),
+                                  allow_ms=allow_ms)
+                plan = torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
+                                  out["qcoeffs"]], dim=-1)
+            with m.stage("device_fetch"):
+                plans.append(plan.cpu().numpy())
+                # int16 wire for the residue fetch when every frame's fits
+                wire16 = bool(out["fits16"].all())
+                residues.append(
+                    out["res16" if wire16 else "residues"].cpu().numpy())
+            m.count("chunks")
+            if not wire16:
+                m.count("int32_fetch")
         # every block of the group in one native pack, then each file's
         # frames serialized from its range
-        packed = pack_frames(
-            np.concatenate(plans),
-            np.concatenate([r.astype(np.int32, copy=False) for r in residues]),
-            nv_all)
-        pos = 0
-        for i, (x, _) in zip(idxs, framed):
-            F = len(x)
-            header = container.SelaHeader(wavs[i].sample_rate,
-                                          wavs[i].bits_per_sample, C, F)
-            results[i] = container.serialize_file(
-                header, [serialize_frames(packed, nv_all, pos, pos + F)])
-            pos += F
+        with m.stage("host_pack"):
+            packed = pack_frames(
+                np.concatenate(plans),
+                np.concatenate([r.astype(np.int32, copy=False)
+                                for r in residues]),
+                nv_all, m)
+            pos = 0
+            for i, (x, _) in zip(idxs, framed):
+                F = len(x)
+                header = container.SelaHeader(wavs[i].sample_rate,
+                                              wavs[i].bits_per_sample, C, F)
+                frames = serialize_frames(packed, nv_all, pos, pos + F, m)
+                results[i] = container.serialize_file(header, [frames])
+                pos += F
+        m.count("groups")
+    m.count("files", len(wavs))
+    m.count("pcm_bytes", sum(w.n_samples * w.n_channels * w.bits_per_sample
+                             // 8 for w in wavs))
+    m.count("coded_bytes", sum(len(b) for b in results))
     return results  # type: ignore[return-value]
 
 

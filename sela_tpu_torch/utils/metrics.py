@@ -33,6 +33,18 @@ do NOT equal device busy-time):
           "bitio_workers_on_cpu" — the same workers' on-CPU seconds
           (CLOCK_THREAD_CPUTIME_ID, which some kernels advance only
           in 10 ms ticks: a sum over many workers, not one call's).
+  encode_files (codec/corpus.py), the same names a group of files:
+          "host_frame" — frame_batches of each file and the group's
+          concatenation; "device_dispatch" — the chunk's copy to the
+          device and encode_step's launches; "device_fetch" — the
+          synchronous fetch of the chunk's plan and residues, the wait
+          included; "host_pack" — pack_frames of the whole group
+          (pack_gather, rice_count, rice_pack nested) and each file's
+          serialize_frames (emit nested).
+          Counters: "files", "groups", "chunks";
+          "int32_fetch" — chunks whose residues came back as int32, not
+          every frame's fitting int16; "pack_blocks_host"; "pcm_bytes"
+          and "coded_bytes" over the batch.
   decode: "host_parse" — container scan; "host_unpack" — Rice unpack +
           scatter into pinned buffers + async H2D and kernel launches;
           "device_fetch" — wait on the chunk's CUDA event (device compute
