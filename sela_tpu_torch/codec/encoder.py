@@ -9,6 +9,11 @@ pinned buffers, behind one CUDA event a chunk, while the card encodes
 chunks i+1..i+3 (a PIPELINE-deep software pipeline). The frames are
 serialized in order. ≤16-bit PCM crosses to the device as int16.
 
+On the card a full chunk (chunk_frames frames) replays a CUDA graph of its
+device work (codec/step_graph.py), captured after the first full chunk of
+its shape and profile ran eagerly; a track's tail chunk, and a track
+shorter than one chunk, run eagerly. The streams are the same either way.
+
 Two ways to the Rice words, chosen by the profile and the device:
 
 - v1 (residue_partition 1) on the card: the card packs every plain block
@@ -28,6 +33,8 @@ Either way the steady state never waits on the device mid-chunk.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -39,6 +46,7 @@ from ..ref import container
 from ..ref.wav import WavData
 from ..utils.device import resolve_device
 from ..utils.metrics import NULL_METRICS
+from . import step_graph
 from .pipeline import encode_step
 
 DEFAULT_CHUNK_FRAMES = 512
@@ -154,6 +162,29 @@ def device_pack(out: dict, n_valid: torch.Tensor) -> tuple:
     return res + coeff
 
 
+def device_chunk(x: torch.Tensor, n_valid: torch.Tensor, on_card: bool,
+                 wire16: bool, **step) -> dict:
+    """One chunk's device work, enqueued and never read on the host (what
+    step_graph captures): encode_step(x, n_valid, **step) and what the host
+    fetches of it. Returns plan ([F, C, len(PLAN) + 32] int32: the PLAN
+    columns, then the coefficients), residues (the int32 residues, for a
+    chunk that turns out to need them) and, on the card's v1 path
+    (on_card), device_pack's res_words and coeff_words and their [2 F C]
+    nwords, else res (the residues on the wire: int16 where wire16) and
+    fits16."""
+    out = encode_step(x, n_valid, **step)
+    got = dict(plan=torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
+                               out["qcoeffs"]], dim=-1),
+               residues=out["residues"])
+    if on_card:
+        rw, rnw, cw, cnw = device_pack(out, n_valid)
+        got.update(res_words=rw, coeff_words=cw, nwords=torch.cat([rnw, cnw]))
+    else:
+        got.update(res=out["res16"] if wire16 else out["residues"],
+                   fits16=out["fits16"])
+    return got
+
+
 def splice_frames(plan: np.ndarray, res, nv: np.ndarray, resid: tuple,
                   coeff: tuple, metrics=None):
     """pack_frames' result for a run of frames whose plain blocks the card
@@ -247,6 +278,7 @@ class _Slot:
         def buf(shape, dtype):
             return torch.empty(shape, dtype=dtype, pin_memory=cuda)
 
+        self.on_card = on_card
         self.x = buf((frames, C, S), wire)
         self.nv = buf((frames,), torch.int32)
         self.plan = buf((frames, C, len(PLAN) + MAX_ORDER), torch.int32)
@@ -258,6 +290,32 @@ class _Slot:
             self.fits16 = buf((frames,), torch.int32)
             self.res = buf((frames, C, S), wire)
         self.event = torch.cuda.Event() if cuda else None
+        self.res32 = None   # the device copy of a replayed chunk's residues
+
+    def copy_back(self, out: dict, fcount: int, keep32: bool, copy32: bool):
+        """Enqueue the copies of a chunk's device_chunk outputs into these
+        buffers, then the event; returns the int32 residues kept on the
+        device where keep32 (a copy of them where copy32, as a graph's
+        static outputs are overwritten by the next replay)."""
+        cuda = self.event is not None
+        self.plan[:fcount].copy_(out["plan"], non_blocking=cuda)
+        if self.on_card:
+            # the buffers at their bound: the planned totals are not known
+            # on the host before the event
+            for name in ("res_words", "coeff_words", "nwords"):
+                src = out[name]
+                getattr(self, name)[:src.numel()].copy_(src, non_blocking=True)
+        else:
+            self.fits16[:fcount].copy_(out["fits16"], non_blocking=cuda)
+            self.res[:fcount].copy_(out["res"], non_blocking=cuda)
+        res32 = out["residues"] if keep32 else None
+        if res32 is not None and copy32:
+            if self.res32 is None:
+                self.res32 = torch.empty_like(res32)
+            res32 = self.res32.copy_(res32, non_blocking=True)
+        if cuda:
+            self.event.record(torch.cuda.current_stream(out["plan"].device))
+        return res32
 
 
 def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
@@ -272,8 +330,9 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     optional utils.metrics.Metrics sink (stages host_frame /
     device_dispatch / device_fetch / host_pack, and inside host_pack
     pack_gather / rice_count / rice_pack / emit; counters frames,
-    int32_fetch, pack_blocks_device, pack_blocks_host, pcm_bytes,
-    coded_bytes; utils/metrics.py). v1 encodes on the card pack their plain
+    int32_fetch, pack_blocks_device, pack_blocks_host, step_graph_replays,
+    step_graph_captures, step_eager, pcm_bytes, coded_bytes;
+    utils/metrics.py). v1 encodes on the card pack their plain
     blocks there (device_pack), the rest on the host (pack_frames). tags:
     optional metadata appended as a tags trailer (FORMAT.md §Tags).
     """
@@ -306,12 +365,29 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
         x, n_valid = frame_batches(w.channels, frame_size,
                                    np.int16 if wire16 else np.int32)
     F, C, S = x.shape
+    full = chunk_frames   # a chunk of this many frames replays a graph
     chunk_frames = min(chunk_frames, F)
     slots = [_Slot(chunk_frames, C, S, wire, cuda, on_card)
              for _ in range(min(PIPELINE, -(-F // chunk_frames)))]
+    step = dict(allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
+                partition=partition, ms_mode=ms_mode)
+
+    def run_step(xd, nvd):
+        return device_chunk(xd, nvd, on_card, wire16, **step)
+
+    if cuda:
+        gdev = torch.device("cuda", torch.cuda.current_device()
+                            if dev.index is None else dev.index)
+        key = (gdev, full, C, S, wire, on_card, *step.items())
+    # the int32 residues stay on the device for a chunk that turns out to
+    # need them: a block left to the host, or an int16 copy that does not
+    # hold them
+    keep32 = on_card or wire16
 
     def dispatch(index: int, start: int):
-        """Stage one chunk and enqueue its device encode and copies back."""
+        """Stage one chunk and enqueue its device encode and copies back:
+        a replay of the key's graph for a full chunk on the card, else the
+        eager step (a full chunk's first, which then captures the graph)."""
         slot = slots[index % len(slots)]
         stop = min(start + chunk_frames, F)
         fcount = stop - start
@@ -319,34 +395,23 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
             slot.x.numpy()[:fcount] = x[start:stop]
             slot.nv.numpy()[:fcount] = n_valid[start:stop]
         with m.stage("device_dispatch"):
-            nv_dev = slot.nv[:fcount].to(dev, non_blocking=True)
-            out = encode_step(
-                slot.x[:fcount].to(dev, non_blocking=True), nv_dev,
-                allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
-                partition=partition, ms_mode=ms_mode)
-            plan = torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
-                              out["qcoeffs"]], dim=-1)
-            slot.plan[:fcount].copy_(plan, non_blocking=cuda)
-            if on_card:
-                rw, rnw, cw, cnw = device_pack(out, nv_dev)
-                # the buffers at their bound: the planned totals are not
-                # known on the host before the event
-                slot.res_words[:rw.numel()].copy_(rw, non_blocking=True)
-                slot.coeff_words[:cw.numel()].copy_(cw, non_blocking=True)
-                slot.nwords[:2 * rnw.numel()].copy_(torch.cat([rnw, cnw]),
-                                                    non_blocking=True)
-            else:
-                slot.fits16[:fcount].copy_(out["fits16"], non_blocking=cuda)
-                slot.res[:fcount].copy_(
-                    out["res16"] if wire16 else out["residues"],
-                    non_blocking=cuda)
-            if cuda:
-                slot.event.record(torch.cuda.current_stream(dev))
-        # the int32 residues stay on the device for a chunk that turns out
-        # to need them: a block left to the host, or an int16 copy that
-        # does not hold them
-        keep = on_card or wire16
-        return slot, start, fcount, out["residues"] if keep else None
+            graph = (step_graph.GRAPHS.get(key) if cuda and fcount == full
+                     else None)
+            replay = graph.replay(slot.x, slot.nv) if graph else nullcontext()
+            with replay as out:
+                if out is not None:
+                    res32 = slot.copy_back(out, fcount, keep32, copy32=True)
+                    m.count("step_graph_replays")
+            if out is None:
+                res32 = slot.copy_back(run_step(
+                    slot.x[:fcount].to(dev, non_blocking=True),
+                    slot.nv[:fcount].to(dev, non_blocking=True)),
+                    fcount, keep32, copy32=False)
+                m.count("step_eager")
+                if (cuda and fcount == full and step_graph.GRAPHS.capture(
+                        key, run_step, slot.x.shape, wire, gdev)):
+                    m.count("step_graph_captures")
+        return slot, start, fcount, res32
 
     frames: list[bytes] = []
 

@@ -8,11 +8,12 @@ device path is untouched. NULL_METRICS, the default, records nothing.
 Stage-name semantics (CUDA work is asynchronous, so host wall-time buckets
 do NOT equal device busy-time):
   encode: "host_frame" — framing and staging into pinned buffers;
-          "device_dispatch" — encode_step's launches and the async copies
-          back; "device_fetch" — wait on the chunk's CUDA event and the
-          int32 fallback fetch; "host_pack" — the chunk's Rice pack (on
-          the v1 path on the card: the blocks the card left, and the
-          splice) and frame emit, which nests:
+          "device_dispatch" — encode_step's launches (or a replay of its
+          CUDA graph) and the async copies back; "device_fetch" — wait
+          on the chunk's CUDA event and the int32 fallback fetch;
+          "host_pack" — the chunk's Rice pack (on the v1 path on the
+          card: the blocks the card left, and the splice) and frame
+          emit, which nests:
             "pack_gather" — the PLAN columns, and the numpy before each
                             block kind's native calls (pack_frames: two
                             spans a chunk; splice_frames: one, and one a
@@ -26,7 +27,11 @@ do NOT equal device busy-time):
           Counters: "pack_blocks_device" / "pack_blocks_host" — Rice
           blocks (residue and coefficient blocks together) packed on the
           card / by bitio; "int32_fetch" — chunks whose int32 residues
-          were fetched after their event.
+          were fetched after their event; "step_graph_replays" — chunks
+          whose device step replayed a CUDA graph (codec/step_graph.py),
+          "step_graph_captures" — graphs captured, "step_eager" — chunks
+          whose device step ran eagerly (every chunk on the CPU; on the
+          card a tail chunk and a shape's first full chunk).
           Timed inside the native library, outside Python (add_span):
           "bitio_workers" — the count and pack passes' worker threads,
           wall seconds summed over workers (n: workers run);

@@ -167,8 +167,10 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     package's Metrics.snapshot given the same counters and stages, less its
     `mb_per_s` (PCM over the sum of stages, which nested stages and worker
     seconds make meaningless). Encode's stages include host_pack's spans
-    and bitio's worker figures, and its record the port's own counter of
-    the blocks bitio packed (pack_blocks_host: every block, on the CPU)."""
+    and bitio's worker figures, and its record the port's own counters of
+    the blocks bitio packed (pack_blocks_host: every block, on the CPU) and
+    of the chunks whose device step ran eagerly (step_eager: every chunk
+    on the CPU, here one)."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -191,7 +193,8 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     counters = ("frames", "pcm_bytes", "coded_bytes")
     if op == "encode":
         assert rec["pack_blocks_host"] == 2 * 3 * 2
-        counters += ("pack_blocks_host",)
+        assert rec["step_eager"] == 1
+        counters += ("pack_blocks_host", "step_eager")
     m = JaxMetrics()
     for k in counters:
         m.count(k, rec[k])
