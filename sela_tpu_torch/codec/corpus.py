@@ -2,14 +2,18 @@
 
 Counterpart of sela_tpu/codec/corpus.py. The frames of all files of one
 group (same channel count, same <=24-bit class: the same mid/side rule) are
-concatenated along the frame axis and run through the same encode_step /
-decode_step chunks, so small files share device batches instead of paying
-for a launch sequence each. Each file's stream is byte-identical to its own
-encode_wav stream. decode_files returns int32 PCM at every bit depth, as
-sela_tpu's does, so each decoded file equals the oracle's (but where a
-reconstruction leaves int32: both packages wrap it to 32 bits) and, wherever
-its samples fit its declared bit depth, its own decode_sela (which narrows
-<=16-bit output to int16 in both packages).
+concatenated along the frame axis and run through shared device chunks, so
+small files share device batches instead of paying for a launch sequence
+each. encode_files runs a group through encode_wav's chunk engine
+(codec/encoder.py::encode_chunks: pinned slots, the pipeline, the CUDA
+graph of a full chunk, the card's Rice pack on v1) and serializes each
+file's frames from the chunks that hold them, so each file's stream is
+byte-identical to its own encode_wav stream. decode_files runs decode_step
+chunks; it returns int32 PCM at every bit depth, as sela_tpu's does, so
+each decoded file equals the oracle's (but where a reconstruction leaves
+int32: both packages wrap it to 32 bits) and, wherever its samples fit its
+declared bit depth, its own decode_sela (which narrows <=16-bit output to
+int16 in both packages).
 """
 from __future__ import annotations
 
@@ -21,10 +25,10 @@ from ..ref import container
 from ..ref.wav import WavData
 from ..utils.device import resolve_device
 from ..utils.metrics import NULL_METRICS
-from .decoder import DEFAULT_CHUNK_FRAMES, merge_scans, scan, unpack
-from .encoder import (PLAN, check_frame_size, frame_batches, pack_frames,
-                      serialize_frames)
-from .pipeline import decode_step, encode_step
+from .decoder import merge_scans, scan, unpack
+from .encoder import (DEFAULT_CHUNK_FRAMES, check_frame_size, encode_chunks,
+                      frame_batches, serialize_frames)
+from .pipeline import decode_step
 
 
 def _groups(keys) -> dict:
@@ -39,18 +43,16 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
                  frame_size: int = FRAME_SIZE, device=None,
                  metrics=None) -> list[bytes]:
     """Encode WavData files to .sela bytes on `device` (default: the CUDA
-    card), the files of a group sharing device chunks; the default profile
-    at `frame_size` samples a frame. Each file's stream is its encode_wav
-    stream at that frame size.
+    card), the files of a group sharing the chunks of encode_wav's engine;
+    the default profile at `frame_size` samples a frame. Each file's stream
+    is its encode_wav stream at that frame size. A group crosses to the
+    device as int16 where every file of it is <=16-bit, as encode_wav's.
 
     device="cpu" runs the plain PyTorch versions of the kernels; with no
     device named and no CUDA available this raises. frame_size outside
     [32, FRAME_SIZE] raises (encoder.check_frame_size). metrics: optional
-    utils.metrics.Metrics sink (stages host_frame / device_dispatch /
-    device_fetch / host_pack, and inside host_pack pack_gather /
-    rice_count / rice_pack / emit; counters files, groups, chunks,
-    int32_fetch, pack_blocks_host, pcm_bytes, coded_bytes;
-    utils/metrics.py).
+    utils.metrics.Metrics sink (encode_wav's stages and counters, and
+    files, groups; utils/metrics.py).
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
@@ -63,45 +65,30 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     results: list[bytes | None] = [None] * len(wavs)
     groups = _groups((w.n_channels, w.bits_per_sample <= 24) for w in wavs)
     for (C, allow_ms), idxs in groups.items():
+        # encode_wav's wire rule, for the whole group
+        wire = (np.int16 if all(wavs[i].bits_per_sample <= 16 for i in idxs)
+                else np.int32)
         with m.stage("host_frame"):
-            framed = [frame_batches(wavs[i].channels, frame_size)
+            framed = [frame_batches(wavs[i].channels, frame_size, wire)
                       for i in idxs]
             x_all = np.concatenate([x for x, _ in framed])
             nv_all = np.concatenate([nv for _, nv in framed])
-        plans, residues = [], []
-        for start in range(0, len(x_all), chunk_frames):
-            stop = start + chunk_frames
-            with m.stage("device_dispatch"):
-                out = encode_step(torch.from_numpy(x_all[start:stop]).to(dev),
-                                  torch.from_numpy(nv_all[start:stop]).to(dev),
-                                  allow_ms=allow_ms)
-                plan = torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
-                                  out["qcoeffs"]], dim=-1)
-            with m.stage("device_fetch"):
-                plans.append(plan.cpu().numpy())
-                # int16 wire for the residue fetch when every frame's fits
-                wire16 = bool(out["fits16"].all())
-                residues.append(
-                    out["res16" if wire16 else "residues"].cpu().numpy())
-            m.count("chunks")
-            if not wire16:
-                m.count("int32_fetch")
-        # every block of the group in one native pack, then each file's
-        # frames serialized from its range
-        with m.stage("host_pack"):
-            packed = pack_frames(
-                np.concatenate(plans),
-                np.concatenate([r.astype(np.int32, copy=False)
-                                for r in residues]),
-                nv_all, m)
-            pos = 0
-            for i, (x, _) in zip(idxs, framed):
-                F = len(x)
-                header = container.SelaHeader(wavs[i].sample_rate,
-                                              wavs[i].bits_per_sample, C, F)
-                frames = serialize_frames(packed, nv_all, pos, pos + F, m)
-                results[i] = container.serialize_file(header, [frames])
-                pos += F
+        bounds = np.cumsum([0] + [len(x) for x, _ in framed])
+        pieces: list[list[bytes]] = [[] for _ in idxs]
+
+        def emit(start, fcount, packed, nv):   # each file's frames in it
+            for j, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+                lo, hi = max(lo, start), min(hi, start + fcount)
+                if lo < hi:
+                    pieces[j].append(serialize_frames(
+                        packed, nv, lo - start, hi - start, m))
+
+        encode_chunks(x_all, nv_all, dev, chunk_frames,
+                      dict(allow_ms=allow_ms), m, emit)
+        for i, frames, (x, _) in zip(idxs, pieces, framed):
+            header = container.SelaHeader(wavs[i].sample_rate,
+                                          wavs[i].bits_per_sample, C, len(x))
+            results[i] = container.serialize_file(header, frames)
         m.count("groups")
     m.count("files", len(wavs))
     m.count("pcm_bytes", sum(w.n_samples * w.n_channels * w.bits_per_sample

@@ -1,33 +1,35 @@
 """Host-side encode orchestration: PCM -> device chunks -> .sela bytes.
 
-Counterpart of sela_tpu/codec/encoder.py. The PCM is framed into [F, C, S]
-chunks, each chunk is staged in pinned host buffers and copied to the
-device without blocking, codec/pipeline.py::encode_step analyzes and
-renders it there (K3, K4, K1, K5, K6, and K8 under partitioned
-residues), and what the host needs comes back without blocking into
-pinned buffers, behind one CUDA event a chunk, while the card encodes
-chunks i+1..i+3 (a PIPELINE-deep software pipeline). The frames are
-serialized in order. ≤16-bit PCM crosses to the device as int16.
+Counterpart of sela_tpu/codec/encoder.py. One chunk engine
+(encode_chunks) runs every encode chunk, of encode_wav's track and of
+codec/corpus.py::encode_files' groups of files alike. The PCM, framed into
+[F, C, S] (int16 where it is ≤16-bit), is staged chunk by chunk in pinned
+host buffers and copied to the device without blocking,
+codec/pipeline.py::encode_step analyzes and renders it there (K3, K4, K1,
+K5, K6, and K8 under partitioned residues), and what the host needs comes
+back without blocking into pinned buffers, behind one CUDA event a chunk,
+while the card encodes chunks i+1..i+3 (a PIPELINE-deep software
+pipeline). The frames are serialized in order.
 
 On the card a full chunk (chunk_frames frames) replays a CUDA graph of its
 device work (codec/step_graph.py), captured after the first full chunk of
-its shape and profile ran eagerly; a track's tail chunk, and a track
-shorter than one chunk, run eagerly. The streams are the same either way.
+its shape and profile ran eagerly; a tail chunk, and a run shorter than one
+chunk, run eagerly. The streams are the same either way.
 
-Two ways to the Rice words, chosen by the profile and the device:
+One host pack (pack_frames) turns a chunk into Rice words, and checks every
+block's word count against the device's plan. Where they come from is
+chosen by the profile and the device:
 
 - v1 (residue_partition 1) on the card: the card packs every plain block
   (device_pack: csrc/pack.cu at the plan's word offsets), and the plan,
-  the word counts and the flat word buffers come back. The host packs only
-  the escape blocks (k = 31), from int32 residues it fetches after the
-  event for such a chunk, splices them into their gaps and checks every
-  block's count against the plan (splice_frames).
+  the word counts and the flat word buffers come back. bitio packs only
+  the escape blocks (k = 31), from int32 residues fetched after the event
+  for such a chunk, and they are spliced into their gaps.
 - v2 (partitioned residues), and any encode on the CPU: the residues come
-  back (as int16 with per-frame fits16 flags where the PCM is ≤16-bit; a
-  chunk whose residues do not all fit fetches its int32 residues after its
-  event) and the host packs every block with the native library
-  (pack_frames; native/bitio.cpp, built at first use; there is no numpy
-  packer).
+  back (as int16 with per-frame fits16 flags on the int16 wire; a chunk
+  whose residues do not all fit fetches its int32 residues after its
+  event) and bitio packs every block (native/bitio.cpp, built at first
+  use; there is no numpy packer).
 
 Either way the steady state never waits on the device mid-chunk.
 """
@@ -89,46 +91,71 @@ def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def pack_frames(plan: np.ndarray, res: np.ndarray, nv: np.ndarray,
-                metrics=None):
-    """Rice-pack every block of a run of frames, in one native call for the
-    residue blocks and one for the coefficient blocks.
+def pack_frames(plan: np.ndarray, res, nv: np.ndarray, metrics=None,
+                card=None):
+    """Rice-pack a run of frames for serialize_frames, and check every
+    block's word count against the device's plan (RuntimeError).
 
-    plan: [F, C, len(PLAN) + 32] int32 (PLAN columns, then qcoeffs);
-    res: [F, C, S] residues; nv: [F] valid samples a frame. Returns (cols,
-    coeff, resid) for serialize_frames: the PLAN columns as [F C] arrays, and
-    each block kind's (concatenated words, word count a block). metrics:
-    optional Metrics sink (stages pack_gather, then bitio's)."""
+    plan: [F, C, len(PLAN) + 32] int32 (PLAN columns, then qcoeffs); res:
+    [F, C, S] residues, read only where bitio packs a residue block; nv:
+    [F] valid samples a frame. card: None, and bitio packs every block in
+    one native call a block kind; or device_pack's words on the host,
+    ((res_words, res_nwords), (coeff_words, coeff_nwords)): int32 buffers,
+    each block at its planned word offset, and [F C] word counts, -1 for a
+    block left to bitio and written into its gap. Returns (cols, coeff,
+    resid): the PLAN columns as [F C] arrays, and each block kind's
+    (concatenated words, word count a block). metrics: optional Metrics
+    sink (stages pack_gather, twice, and bitio's where it packs; counters
+    pack_blocks_host, and pack_blocks_device where the card packed)."""
     m = metrics or NULL_METRICS
-    F, C, S = res.shape
-    with m.stage("pack_gather"):
-        cols = {k: np.ascontiguousarray(plan[:, :, i].reshape(-1))
-                for i, k in enumerate(PLAN)}
-        order = cols["order"]
-        res_counts = np.repeat(nv, C)
-        valid = np.arange(S)[None, :] < res_counts[:, None]
-        evals = res.reshape(F * C, S)[valid]
-        res_offs = _exclusive_cumsum(res_counts)
-    resid = bitio.pack_blocks_flat(evals, res_offs, res_counts, cols["k_res"],
-                                   cols["k_res4"], metrics=m)
-    with m.stage("pack_gather"):
-        qrows = plan[:, :, len(PLAN):].reshape(F * C, MAX_ORDER)
-        qvals = qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]]
-        q_offs = _exclusive_cumsum(order)
-    coeff = bitio.pack_blocks_flat(qvals, q_offs, order, cols["k_coeff"],
-                                   metrics=m)
+    F, C = plan.shape[:2]
+    # the blocks bitio packs: every block, or those the card left
+    left = ((slice(None),) * 2 if card is None
+            else [np.flatnonzero(nw < 0) for _, nw in card])
+    kinds = []   # a block kind's rows bitio packs, its words, all counts
+    for i, (kind, rows) in enumerate(zip(("res", "coeff"), left)):
+        with m.stage("pack_gather"):
+            if i == 0:   # the PLAN columns, in the first span
+                cols = {k: np.ascontiguousarray(plan[:, :, j].reshape(-1))
+                        for j, k in enumerate(PLAN)}
+                values, counts = res, np.repeat(nv, C)
+            else:
+                values, counts = plan[:, :, len(PLAN):], cols["order"]
+            counts = counts[rows]
+            if len(counts):
+                vals = values.reshape(F * C, -1)[rows]
+                vals = vals[np.arange(vals.shape[1])[None, :]
+                            < counts[:, None]]
+                offs = _exclusive_cumsum(counts)
+        host = bitio.pack_blocks_flat(
+            vals, offs, counts, cols["k_" + kind][rows],
+            cols["k_res4"][rows] if i == 0 else None,
+            metrics=m) if len(counts) else None
+        got = host[1] if card is None else np.array(card[i][1], np.int64)
+        if card is not None and host is not None:
+            got[rows] = host[1]
+        kinds.append((rows, host, got))
     # the device planned every block's words from its bit counts (K5, K8,
-    # K6); the packer counts them again from the values: they must agree
-    _check_plan(resid[1], cols["nw_res"], coeff[1], cols["nw_coeff"])
-    m.count("pack_blocks_host", 2 * F * C)
-    return cols, coeff, resid
-
-
-def _check_plan(res_counts, res_planned, coeff_counts, coeff_planned):
-    if not (np.array_equal(res_counts, res_planned)
-            and np.array_equal(coeff_counts, coeff_planned)):
+    # K6); the card's packer and bitio count them again: they must agree
+    if not all(np.array_equal(got, cols[k]) for (_, _, got), k
+               in zip(kinds, ("nw_res", "nw_coeff"))):
         raise RuntimeError("device Rice plan and host packer disagree on "
                            "block sizes")
+    if card is None:
+        m.count("pack_blocks_host", 2 * F * C)
+        return cols, kinds[1][1], kinds[0][1]
+    packed = []
+    for (buf, _), (rows, host, _), planned in zip(
+            card, kinds, (cols["nw_res"], cols["nw_coeff"])):
+        words = buf[: int(planned.sum(dtype=np.int64))].view(np.uint32)
+        if host is not None:   # each left block into its planned gap
+            w, wc = host
+            starts = _exclusive_cumsum(planned)[rows] - _exclusive_cumsum(wc)
+            words[np.repeat(starts, wc) + np.arange(len(w))] = w
+        m.count("pack_blocks_device", len(planned) - len(rows))
+        m.count("pack_blocks_host", len(rows))
+        packed.append((words, planned))
+    return cols, packed[1], packed[0]
 
 
 def device_pack(out: dict, n_valid: torch.Tensor) -> tuple:
@@ -183,65 +210,6 @@ def device_chunk(x: torch.Tensor, n_valid: torch.Tensor, on_card: bool,
         got.update(res=out["res16"] if wire16 else out["residues"],
                    fits16=out["fits16"])
     return got
-
-
-def splice_frames(plan: np.ndarray, res, nv: np.ndarray, resid: tuple,
-                  coeff: tuple, metrics=None):
-    """pack_frames' result for a run of frames whose plain blocks the card
-    packed (device_pack).
-
-    plan: [F, C, len(PLAN) + 32] int32; resid and coeff: each block kind's
-    (word buffer, word counts) as device_pack made them, on the host: int32
-    words, at least the planned total, each block at its planned offset, and
-    [F C] counts, -1 for a block left to the host. Those blocks are packed
-    here with bitio, from res ([F, C, S] residues; needed only where a
-    residue block was left) or the plan's coefficients, and written into
-    their gaps. Every block's count, the card's or bitio's, must be the
-    plan's, or this raises RuntimeError as pack_frames does. metrics:
-    optional Metrics sink (stages pack_gather, bitio's where it packs;
-    counters pack_blocks_device and pack_blocks_host)."""
-    m = metrics or NULL_METRICS
-    F, C = plan.shape[:2]
-    with m.stage("pack_gather"):
-        cols = {k: np.ascontiguousarray(plan[:, :, i].reshape(-1))
-                for i, k in enumerate(PLAN)}
-
-    def host_rows(rows, values, counts, ks):
-        """bitio's words and counts of the blocks `rows` of values(), [F C,
-        W]."""
-        with m.stage("pack_gather"):
-            vals = values()[rows]
-            vals = vals[np.arange(vals.shape[1])[None, :] < counts[:, None]]
-        return bitio.pack_blocks_flat(vals, _exclusive_cumsum(counts), counts,
-                                      ks, metrics=m)
-
-    kinds = []
-    for (buf, nwords), planned, ks, values, counts in (
-            (resid, cols["nw_res"], cols["k_res"],
-             lambda: res.reshape(F * C, -1), np.repeat(nv, C)),
-            (coeff, cols["nw_coeff"], cols["k_coeff"],
-             lambda: plan[:, :, len(PLAN):].reshape(F * C, MAX_ORDER),
-             cols["order"])):
-        nwords = np.array(nwords, np.int64)
-        rows = np.flatnonzero(nwords < 0)
-        host = None
-        if len(rows):
-            host = host_rows(rows, values, counts[rows], ks[rows])
-            nwords[rows] = host[1]
-        kinds.append((buf, nwords, planned, rows, host))
-    _check_plan(kinds[0][1], kinds[0][2], kinds[1][1], kinds[1][2])
-    packed = []
-    for buf, nwords, planned, rows, host in kinds:
-        offs = _exclusive_cumsum(planned)
-        words = buf[: int(planned.sum(dtype=np.int64))].view(np.uint32)
-        if host is not None:   # each left block into its planned gap
-            w, wc = host
-            starts = offs[rows] - _exclusive_cumsum(wc)
-            words[np.repeat(starts, wc) + np.arange(len(w))] = w
-        m.count("pack_blocks_device", len(nwords) - len(rows))
-        m.count("pack_blocks_host", len(rows))
-        packed.append((words, planned))
-    return cols, packed[1], packed[0]
 
 
 def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int,
@@ -318,59 +286,28 @@ class _Slot:
         return res32
 
 
-def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
-               chunk_frames: int = DEFAULT_CHUNK_FRAMES, profile=None,
-               metrics=None, tags: dict | None = None, device=None) -> bytes:
-    """Encode WavData to .sela bytes on `device` (default: the CUDA card).
+def encode_chunks(x: np.ndarray, n_valid: np.ndarray, dev: torch.device,
+                  chunk_frames: int, step: dict, metrics, emit) -> None:
+    """Encode framed PCM on `dev` chunk by chunk, PIPELINE chunks in
+    flight: the engine of encode_wav and encode_files.
 
-    profile: optional config.BitstreamProfile (defaults = FORMAT.md v1;
-    residue_partition=4 is the v2 profile, partitioned residues where they
-    are smaller). device="cpu" runs the plain PyTorch versions of the kernels;
-    with no device named and no CUDA available this raises. metrics:
-    optional utils.metrics.Metrics sink (stages host_frame /
-    device_dispatch / device_fetch / host_pack, and inside host_pack
-    pack_gather / rice_count / rice_pack / emit; counters frames,
-    int32_fetch, pack_blocks_device, pack_blocks_host, step_graph_replays,
-    step_graph_captures, step_eager, pcm_bytes, coded_bytes;
-    utils/metrics.py). v1 encodes on the card pack their plain
-    blocks there (device_pack), the rest on the host (pack_frames). tags:
-    optional metadata appended as a tags trailer (FORMAT.md §Tags).
-    """
-    if w.n_samples == 0:
-        raise ValueError("empty audio")
-    if chunk_frames < 1:
-        raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
-    max_order, rice_k_max, allow_ms, partition = MAX_ORDER, None, True, 1
-    ms_mode = "est"
-    if profile is not None:
-        profile.validate()
-        frame_size = profile.frame_size
-        max_order = profile.max_order
-        rice_k_max = profile.rice_k_max
-        allow_ms = profile.mid_side != "off"
-        ms_mode = "exact" if profile.mid_side == "exact" else "est"
-        partition = profile.residue_partition
-    check_frame_size(frame_size)
-    allow_ms = allow_ms and w.bits_per_sample <= 24   # FORMAT.md: 32-bit is LR
-    dev = resolve_device(device)
-    cuda = dev.type == "cuda"
+    x: [F, C, S] in the wire dtype (int16 only where the PCM is ≤16-bit);
+    n_valid: [F] int32; step: encode_step's profile knobs. emit(start,
+    fcount, packed, nv) is called for each chunk in order, inside its
+    host_pack stage, with pack_frames' result for frames [start, start +
+    fcount) and their n_valid. metrics: optional Metrics sink."""
     m = metrics or NULL_METRICS
-    wire16 = w.bits_per_sample <= 16
+    cuda = dev.type == "cuda"
+    F, C, S = x.shape
+    wire16 = x.dtype == np.int16
     wire = torch.int16 if wire16 else torch.int32
     # v2's partitioned blocks need their residues on the host; on the CPU
     # the host is the packer
-    on_card = cuda and partition == 1
-
-    with m.stage("host_frame"):
-        x, n_valid = frame_batches(w.channels, frame_size,
-                                   np.int16 if wire16 else np.int32)
-    F, C, S = x.shape
+    on_card = cuda and step.get("partition", 1) == 1
     full = chunk_frames   # a chunk of this many frames replays a graph
     chunk_frames = min(chunk_frames, F)
     slots = [_Slot(chunk_frames, C, S, wire, cuda, on_card)
              for _ in range(min(PIPELINE, -(-F // chunk_frames)))]
-    step = dict(allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
-                partition=partition, ms_mode=ms_mode)
 
     def run_step(xd, nvd):
         return device_chunk(xd, nvd, on_card, wire16, **step)
@@ -413,8 +350,6 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
                     m.count("step_graph_captures")
         return slot, start, fcount, res32
 
-    frames: list[bytes] = []
-
     def collect(item):
         slot, start, fcount, res32 = item
         with m.stage("device_fetch"):
@@ -433,14 +368,12 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
                     m.count("int32_fetch")
         with m.stage("host_pack"):
             nv = n_valid[start:start + fcount]
-            plan = slot.plan[:fcount].numpy()
-            if on_card:
-                packed = splice_frames(
-                    plan, res, nv, (slot.res_words.numpy(), nwords[0]),
-                    (slot.coeff_words.numpy(), nwords[1]), m)
-            else:
-                packed = pack_frames(plan, res, nv, m)
-            frames.append(serialize_frames(packed, nv, 0, fcount, m))
+            card = (((slot.res_words.numpy(), nwords[0]),
+                     (slot.coeff_words.numpy(), nwords[1]))
+                    if on_card else None)
+            packed = pack_frames(slot.plan[:fcount].numpy(), res, nv, m, card)
+            emit(start, fcount, packed, nv)
+        m.count("chunks")
         m.count("frames", fcount)
 
     inflight = []
@@ -451,7 +384,58 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     for item in inflight:
         collect(item)
 
-    header = container.SelaHeader(w.sample_rate, w.bits_per_sample, C, F)
+
+def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
+               chunk_frames: int = DEFAULT_CHUNK_FRAMES, profile=None,
+               metrics=None, tags: dict | None = None, device=None) -> bytes:
+    """Encode WavData to .sela bytes on `device` (default: the CUDA card).
+
+    profile: optional config.BitstreamProfile (defaults = FORMAT.md v1;
+    residue_partition=4 is the v2 profile, partitioned residues where they
+    are smaller). device="cpu" runs the plain PyTorch versions of the kernels;
+    with no device named and no CUDA available this raises. metrics:
+    optional utils.metrics.Metrics sink (stages host_frame /
+    device_dispatch / device_fetch / host_pack, and inside host_pack
+    pack_gather / rice_count / rice_pack / emit; counters frames, chunks,
+    int32_fetch, pack_blocks_device, pack_blocks_host, step_graph_replays,
+    step_graph_captures, step_eager, pcm_bytes, coded_bytes;
+    utils/metrics.py). v1 encodes on the card pack their plain
+    blocks there (device_pack), the rest on the host (pack_frames). tags:
+    optional metadata appended as a tags trailer (FORMAT.md §Tags).
+    """
+    if w.n_samples == 0:
+        raise ValueError("empty audio")
+    if chunk_frames < 1:
+        raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
+    max_order, rice_k_max, allow_ms, partition = MAX_ORDER, None, True, 1
+    ms_mode = "est"
+    if profile is not None:
+        profile.validate()
+        frame_size = profile.frame_size
+        max_order = profile.max_order
+        rice_k_max = profile.rice_k_max
+        allow_ms = profile.mid_side != "off"
+        ms_mode = "exact" if profile.mid_side == "exact" else "est"
+        partition = profile.residue_partition
+    check_frame_size(frame_size)
+    allow_ms = allow_ms and w.bits_per_sample <= 24   # FORMAT.md: 32-bit is LR
+    dev = resolve_device(device)
+    m = metrics or NULL_METRICS
+
+    with m.stage("host_frame"):
+        x, n_valid = frame_batches(
+            w.channels, frame_size,
+            np.int16 if w.bits_per_sample <= 16 else np.int32)
+    frames: list[bytes] = []
+    encode_chunks(
+        x, n_valid, dev, chunk_frames,
+        dict(allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
+             partition=partition, ms_mode=ms_mode), m,
+        lambda start, fcount, packed, nv: frames.append(
+            serialize_frames(packed, nv, 0, fcount, m)))
+
+    header = container.SelaHeader(w.sample_rate, w.bits_per_sample,
+                                  w.n_channels, len(x))
     buf = container.serialize_file(header, frames)
     if tags:
         buf += container.serialize_tags(tags)

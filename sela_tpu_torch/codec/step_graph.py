@@ -1,4 +1,4 @@
-"""encode_wav's device step as a CUDA graph: one launch a full chunk.
+"""The encode engine's device step as a CUDA graph: one launch a full chunk.
 
 On the card a chunk's device work (codec/encoder.py::device_chunk:
 encode_step, the plan, and on the v1 path device_pack) is about a hundred
@@ -12,8 +12,9 @@ n_valid [F] int32), the graph captured from them into a private memory
 pool, and its static outputs. StepGraphs maps a key (the device, the
 chunk's shape and wire dtype, the profile's knobs; whatever changes the
 captured chain) to one graph, least recently used first out, and frees a
-graph's pool when it drops it. GRAPHS is the process's map; encode_wav
-reads it and nothing else keeps graphs.
+graph's pool when it drops it. GRAPHS is the process's map; the encode
+engine (codec/encoder.py::encode_chunks, under encode_wav and
+encode_files) reads it and nothing else keeps graphs.
 
 The launch counters of kernels/coeffs.py, kernels/encode.py and
 kernels/pack.py stay per launch run: a capture runs nothing, so it takes

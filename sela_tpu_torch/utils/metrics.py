@@ -7,49 +7,42 @@ device path is untouched. NULL_METRICS, the default, records nothing.
 
 Stage-name semantics (CUDA work is asynchronous, so host wall-time buckets
 do NOT equal device busy-time):
-  encode: "host_frame" — framing and staging into pinned buffers;
-          "device_dispatch" — encode_step's launches (or a replay of its
-          CUDA graph) and the async copies back; "device_fetch" — wait
-          on the chunk's CUDA event and the int32 fallback fetch;
-          "host_pack" — the chunk's Rice pack (on the v1 path on the
-          card: the blocks the card left, and the splice) and frame
-          emit, which nests:
+  encode: encode_wav, and encode_files, whose groups of files run the same
+          chunk engine (codec/encoder.py::encode_chunks).
+          "host_frame" — framing (a track, or each file of a group and
+          their concatenation), and each chunk's staging into pinned
+          buffers; "device_dispatch" — encode_step's launches (or a
+          replay of its CUDA graph) and the async copies back;
+          "device_fetch" — wait on the chunk's CUDA event and the int32
+          fallback fetch; "host_pack" — the chunk's Rice pack
+          (pack_frames; on the v1 path on the card: the blocks the card
+          left, and the splice) and frame emit, which nests:
             "pack_gather" — the PLAN columns, and the numpy before each
-                            block kind's native calls (pack_frames: two
-                            spans a chunk; splice_frames: one, and one a
-                            kind with blocks left to the host);
+                            block kind's native call (two spans a chunk);
             "rice_count"  — bitio's word-count pass (rice_block_words);
             "rice_pack"   — bitio's pack pass (rice_pack_blocks);
-            "emit"        — serialize_frames (word slicing, emit_frames);
+            "emit"        — serialize_frames (word slicing, emit_frames):
+                            once a chunk, or once for each file's frames
+                            in a chunk;
           host_pack less those four is its self time. bitio's two passes
-          run only where the host packs: v2, the CPU, encode_files, and
-          the escape blocks (k = 31) of the v1 path on the card.
-          Counters: "pack_blocks_device" / "pack_blocks_host" — Rice
-          blocks (residue and coefficient blocks together) packed on the
-          card / by bitio; "int32_fetch" — chunks whose int32 residues
-          were fetched after their event; "step_graph_replays" — chunks
-          whose device step replayed a CUDA graph (codec/step_graph.py),
-          "step_graph_captures" — graphs captured, "step_eager" — chunks
-          whose device step ran eagerly (every chunk on the CPU; on the
-          card a tail chunk and a shape's first full chunk).
+          run only where the host packs: v2, the CPU, and the escape
+          blocks (k = 31) of the v1 path on the card.
+          Counters: "frames", "chunks"; "pack_blocks_device" /
+          "pack_blocks_host" — Rice blocks (residue and coefficient
+          blocks together) packed on the card / by bitio; "int32_fetch" —
+          chunks whose int32 residues were fetched after their event;
+          "step_graph_replays" — chunks whose device step replayed a CUDA
+          graph (codec/step_graph.py), "step_graph_captures" — graphs
+          captured, "step_eager" — chunks whose device step ran eagerly
+          (every chunk on the CPU; on the card a tail chunk and a shape's
+          first full chunk); "pcm_bytes" and "coded_bytes"; encode_files
+          also "files" and "groups".
           Timed inside the native library, outside Python (add_span):
           "bitio_workers" — the count and pack passes' worker threads,
           wall seconds summed over workers (n: workers run);
           "bitio_workers_on_cpu" — the same workers' on-CPU seconds
           (CLOCK_THREAD_CPUTIME_ID, which some kernels advance only
           in 10 ms ticks: a sum over many workers, not one call's).
-  encode_files (codec/corpus.py), the same names a group of files:
-          "host_frame" — frame_batches of each file and the group's
-          concatenation; "device_dispatch" — the chunk's copy to the
-          device and encode_step's launches; "device_fetch" — the
-          synchronous fetch of the chunk's plan and residues, the wait
-          included; "host_pack" — pack_frames of the whole group
-          (pack_gather, rice_count, rice_pack nested) and each file's
-          serialize_frames (emit nested).
-          Counters: "files", "groups", "chunks";
-          "int32_fetch" — chunks whose residues came back as int32, not
-          every frame's fitting int16; "pack_blocks_host"; "pcm_bytes"
-          and "coded_bytes" over the batch.
   decode: "host_parse" — container scan; "host_unpack" — Rice unpack +
           scatter into pinned buffers + async H2D and kernel launches;
           "device_fetch" — wait on the chunk's CUDA event (device compute

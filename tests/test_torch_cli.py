@@ -169,8 +169,8 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     seconds make meaningless). Encode's stages include host_pack's spans
     and bitio's worker figures, and its record the port's own counters of
     the blocks bitio packed (pack_blocks_host: every block, on the CPU) and
-    of the chunks whose device step ran eagerly (step_eager: every chunk
-    on the CPU, here one)."""
+    of the chunks encoded (chunks) and of those whose device step ran
+    eagerly (step_eager: every chunk on the CPU), here one."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -193,8 +193,8 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     counters = ("frames", "pcm_bytes", "coded_bytes")
     if op == "encode":
         assert rec["pack_blocks_host"] == 2 * 3 * 2
-        assert rec["step_eager"] == 1
-        counters += ("pack_blocks_host", "step_eager")
+        assert rec["chunks"] == rec["step_eager"] == 1
+        counters += ("pack_blocks_host", "chunks", "step_eager")
     m = JaxMetrics()
     for k in counters:
         m.count(k, rec[k])

@@ -1,6 +1,7 @@
 """The port's corpus batch encode (codec/corpus.py::encode_files) with a
-Metrics sink: the stages encode_wav records, with the same nesting, the
-batch's counters, and not a byte changed. metrics=None reads no clock."""
+Metrics sink: it runs encode_wav's chunk engine, so it records encode_wav's
+stages, with the same nesting, and counters, and the batch's own; and not a
+byte changes. metrics=None reads no clock."""
 from __future__ import annotations
 
 import types
@@ -30,20 +31,30 @@ def _quiet(rng, n: int, f: float) -> np.ndarray:
 
 def _batch() -> list[WavData]:
     """Mono and stereo, 16- and 24-bit, one file shorter than a frame. The
-    stereo group's loud 24-bit noise leaves int16 in every frame; its quiet
+    mono group is all 16-bit, so it crosses to the device as int16; its
+    short file is a full-scale square wave whose residues leave int16. The
+    stereo group's loud 24-bit noise puts it on the int32 wire; its quiet
     16-bit files fill the chunks before and after it."""
     rng = np.random.default_rng(18)
     loud = (1 << 23) - 1
+    square = np.where(np.arange(FS - 9) % 20 < 10, 32767, -32768)
     return [
         WavData(22050, 16, [_quiet(rng, 5 * FS + 7, 0.05)]),
         WavData(44100, 16, [_quiet(rng, CHUNK * FS, 0.03),
                             _quiet(rng, CHUNK * FS, 0.07)]),
         WavData(48000, 24, [rng.integers(-loud, loud, 3 * FS + 5,
                                          dtype=np.int32) for _ in range(2)]),
-        WavData(48000, 24, [_quiet(rng, FS - 9, 0.02)]),
+        WavData(48000, 16, [square.astype(np.int32)]),
         WavData(44100, 16, [_quiet(rng, 2 * FS, 0.04),
                             _quiet(rng, 2 * FS, 0.05)]),
     ]
+
+
+GROUPS = ([0, 3], [1, 2, 4])   # mono, stereo: each file's group, in order
+
+
+def _frames(w: WavData) -> int:
+    return -(-w.n_samples // FS)
 
 
 def _encode(wavs, metrics):
@@ -70,27 +81,34 @@ def test_a_sink_changes_no_byte(traced):
 
 
 def test_counters_are_the_batchs(traced):
+    """encode_wav's counters over the batch's chunks, and the batch's."""
     wavs, bufs, m = traced
     c = m.counters
-    frames = [-(-w.n_samples // FS) for w in wavs]
-    # groups: mono <= 24-bit (files 0, 3) and stereo <= 24-bit (1, 2, 4)
-    group_frames = [frames[0] + frames[3], frames[1] + frames[2] + frames[4]]
+    group_frames = [sum(_frames(wavs[i]) for i in g) for g in GROUPS]
+    chunks = sum(-(-f // CHUNK) for f in group_frames)
     assert c["files"] == 5 and c["groups"] == 2
-    assert c["chunks"] == sum(-(-f // CHUNK) for f in group_frames)
-    assert c["pack_blocks_host"] == 2 * sum(f * w.n_channels
-                                            for f, w in zip(frames, wavs))
+    assert c["chunks"] == c["step_eager"] == chunks   # eager on the CPU
+    assert c["frames"] == sum(group_frames)
+    # the CPU packs every block on the host
+    assert c["pack_blocks_host"] == 2 * sum(_frames(w) * w.n_channels
+                                            for w in wavs)
+    assert "pack_blocks_device" not in c
     assert c["pcm_bytes"] == sum(w.n_samples * w.n_channels
                                  * w.bits_per_sample // 8 for w in wavs)
     assert c["coded_bytes"] == sum(len(b) for b in bufs)
-    # of the stereo group's three chunks the second alone holds the loud
-    # 24-bit frames: file 1 fills the first, file 4 the third
-    assert group_frames[1] == 3 * CHUNK - 2 and c["int32_fetch"] == 1
+    # of the mono group's two chunks the second alone holds the square
+    # wave; the stereo group, on the int32 wire, has nothing to fetch
+    assert group_frames[0] == 2 * CHUNK - 1 and c["int32_fetch"] == 1
 
 
 def test_int32_fetch_counts_the_chunks_that_leave_int16(traced):
+    """As encode_wav counts it: a chunk on the int16 wire whose residues do
+    not all fit int16; none on the int32 wire."""
     wavs, _, m = traced
     leave = 0
-    for idxs in ([0, 3], [1, 2, 4]):
+    for idxs in GROUPS:
+        if any(wavs[i].bits_per_sample > 16 for i in idxs):
+            continue   # the int32 wire
         framed = [frame_batches(wavs[i].channels, FS) for i in idxs]
         x = np.concatenate([f[0] for f in framed])
         nv = np.concatenate([f[1] for f in framed])
@@ -102,13 +120,22 @@ def test_int32_fetch_counts_the_chunks_that_leave_int16(traced):
 
 
 def test_stage_counts_and_seconds(traced):
-    _, _, m = traced
+    """host_pack once a chunk, emit once for each file's frames in a
+    chunk, the framing once a group and once a chunk's staging."""
+    wavs, _, m = traced
     n, c = m.stage_n, m.counters
-    assert n["host_frame"] == n["host_pack"] == c["groups"]
-    assert n["device_dispatch"] == n["device_fetch"] == c["chunks"]
-    # one gather before each block kind's native calls; one emit a file
-    assert n["pack_gather"] == n["rice_count"] == n["rice_pack"] == 4
-    assert n["emit"] == c["files"]
+    pieces = 0
+    for idxs in GROUPS:
+        bounds = np.cumsum([0] + [_frames(wavs[i]) for i in idxs])
+        pieces += sum((hi - 1) // CHUNK - lo // CHUNK + 1
+                      for lo, hi in zip(bounds[:-1], bounds[1:]))
+    assert n["host_frame"] == c["groups"] + c["chunks"]
+    assert (n["device_dispatch"] == n["device_fetch"] == n["host_pack"]
+            == c["chunks"])
+    # one gather before each block kind's native calls
+    assert n["pack_gather"] == n["rice_count"] == n["rice_pack"] == (
+        2 * c["chunks"])
+    assert n["emit"] == pieces > c["chunks"]
     s = m.stage_s
     assert sum(s[k] for k in INNER) <= s["host_pack"]
 

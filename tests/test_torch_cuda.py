@@ -705,7 +705,6 @@ def _host_packed_stream(w, chunk_frames: int, profile) -> bytes:
     on the card chunk by chunk, as encode_wav runs it, then pack_frames and
     serialize_frames on its fetched outputs."""
     from sela_tpu_torch.codec import encoder
-    from sela_tpu_torch.codec.pipeline import encode_step
     from sela_tpu_torch.ref import container
 
     x, nv = encoder.frame_batches(w.channels, profile.frame_size)
@@ -713,16 +712,15 @@ def _host_packed_stream(w, chunk_frames: int, profile) -> bytes:
     frames = []
     for s in range(0, F, chunk_frames):
         xs, ns = x[s:s + chunk_frames], nv[s:s + chunk_frames]
-        out = encode_step(
+        out = encoder.device_chunk(
             torch.from_numpy(np.ascontiguousarray(xs)).cuda(),
-            torch.from_numpy(ns).cuda(),
+            torch.from_numpy(ns).cuda(), False, False,
             allow_ms=profile.mid_side != "off" and w.bits_per_sample <= 24,
             max_order=profile.max_order, rice_k_max=profile.rice_k_max,
             partition=profile.residue_partition,
             ms_mode="exact" if profile.mid_side == "exact" else "est")
-        plan = torch.cat([torch.stack([out[k] for k in encoder.PLAN], -1),
-                          out["qcoeffs"]], dim=-1).cpu().numpy()
-        packed = encoder.pack_frames(plan, out["residues"].cpu().numpy(), ns)
+        packed = encoder.pack_frames(out["plan"].cpu().numpy(),
+                                     out["residues"].cpu().numpy(), ns)
         frames.append(encoder.serialize_frames(packed, ns, 0, len(ns)))
     return container.serialize_file(
         container.SelaHeader(w.sample_rate, w.bits_per_sample, C, F), frames)
@@ -850,6 +848,33 @@ def test_corpus_round_trip_on_card(dev):
             assert got.bits_per_sample == w.bits_per_sample
             for a, b in zip(got.channels, w.channels):
                 np.testing.assert_array_equal(a, b)
+
+
+def test_encode_files_runs_encode_wavs_engine_on_card(dev, monkeypatch):
+    """encode_files of a 16-bit mono group (the int16 wire) and a mixed
+    16/24-bit stereo group (the int32 wire), 4 full chunks each: the card
+    packs their plain blocks, every full chunk but a group's first replays
+    its CUDA graph, and each file's stream is its encode_wav stream."""
+    from sela_tpu_torch.codec import step_graph
+    from sela_tpu_torch.codec.corpus import encode_files
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.ref.wav import WavData
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    monkeypatch.setattr(step_graph, "GRAPHS", step_graph.StepGraphs())
+    rng = np.random.default_rng(20)
+    # mono, then stereo: 12 frames a group, 4 full chunks of 3
+    files = [(1, 16, 2048 * 5 + 11), (1, 16, 2048 * 6),
+             (2, 16, 2048 * 4 + 700), (2, 24, 2048 * 5 + 3), (2, 16, 900)]
+    wavs = [WavData(44100, bits, list(_audio(rng, nch, n, bits=bits)))
+            for nch, bits, n in files]
+    m = Metrics()
+    bufs = encode_files(wavs, chunk_frames=3, device="cuda", metrics=m)
+    c = m.counters
+    assert c["chunks"] == 8 and c["pack_blocks_device"] > 0
+    assert c["step_graph_captures"] == 2 and c["step_graph_replays"] == 6
+    for w, buf in zip(wavs, bufs):
+        assert buf == encode_wav(w, chunk_frames=3, device="cuda")
 
 
 def test_stream_decode_on_card(dev):

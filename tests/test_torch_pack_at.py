@@ -4,19 +4,18 @@ the host's splice of the blocks it leaves.
 `ops/pack.py::pack_blocks_at` (its plain version here) against the native
 host packer (`native/bitio.py::pack_blocks_flat`) word for word, its rows
 that are no plain block (k = 31, 32), its caps and its refusals; then
-`codec/encoder.py::device_pack` + `splice_frames` on `encode_step`'s
-outputs against `pack_frames`, which the v2 and CPU paths run, escape
-blocks included, and the plan check on planted count mismatches. The card
+`codec/encoder.py::device_chunk`'s card path (`device_pack`) with
+`pack_frames(..., card=...)` against `pack_frames` with every block left to
+bitio, which the v2 and CPU paths run, escape blocks included, and the plan
+check on planted count mismatches. The card
 runs the same functions with the kernel (tests/test_torch_cuda.py).
 """
 import numpy as np
 import pytest
 import torch
 
-from sela_tpu_torch.codec.encoder import (PLAN, device_pack, frame_batches,
-                                          pack_frames, serialize_frames,
-                                          splice_frames)
-from sela_tpu_torch.codec.pipeline import encode_step
+from sela_tpu_torch.codec.encoder import (PLAN, device_chunk, frame_batches,
+                                          pack_frames, serialize_frames)
 from sela_tpu_torch.native import bitio
 from sela_tpu_torch.ops.pack import pack_blocks_at
 from sela_tpu_torch.ref import rice as ref_rice
@@ -144,8 +143,9 @@ def test_pack_at_refuses_bad_inputs():
 
 
 def _chunk(bits: int, rice_k_max, frames: int = 3, S: int = 2048):
-    """encode_step's outputs of a stereo clip on the CPU, and its plan as
-    encode_wav fetches it."""
+    """device_chunk's outputs of a stereo clip on the CPU on the card's v1
+    path (device_pack's plain version), as numpy: its plan, int32
+    residues, word buffers and word counts."""
     rng = np.random.default_rng(bits)
     n = frames * S - 300
     t = np.arange(n)
@@ -155,33 +155,38 @@ def _chunk(bits: int, rice_k_max, frames: int = 3, S: int = 2048):
              for x in (left, 0.8 * left + rng.normal(0, 0.01 * hi + 1, n))]
     chans[0][::97] = -hi - 1            # full-scale spikes: wide residues
     x, nv = frame_batches(chans, S)
-    out = encode_step(torch.from_numpy(np.ascontiguousarray(x)),
-                      torch.from_numpy(nv), allow_ms=bits <= 24,
-                      rice_k_max=rice_k_max)
-    plan = torch.cat([torch.stack([out[k] for k in PLAN], dim=-1),
-                      out["qcoeffs"]], dim=-1).numpy()
-    return out, plan, nv
+    out = device_chunk(torch.from_numpy(np.ascontiguousarray(x)),
+                       torch.from_numpy(nv), True, False,
+                       allow_ms=bits <= 24, rice_k_max=rice_k_max)
+    return {k: v.numpy() for k, v in out.items()}, nv
 
 
-def _spliced(out, plan, nv, metrics=None):
-    rw, rnw, cw, cnw = (t.numpy() for t in device_pack(
-        out, torch.from_numpy(nv)))
-    need = (rnw < 0).any()
-    res = out["residues"].numpy() if need else None
-    return splice_frames(plan, res, nv, (rw, rnw), (cw, cnw), metrics), need
+def _card(out):
+    """pack_frames' card argument from device_chunk's outputs."""
+    rnw, cnw = out["nwords"].reshape(2, -1)
+    return (out["res_words"], rnw), (out["coeff_words"], cnw)
+
+
+def _spliced(out, nv, metrics=None):
+    card = _card(out)
+    need = (card[0][1] < 0).any()
+    res = out["residues"] if need else None
+    return pack_frames(out["plan"], res, nv, metrics, card), need
 
 
 @pytest.mark.parametrize("bits,rice_k_max", [(16, None), (24, None),
                                              (32, None), (16, 0), (24, 7)],
                          ids=["16b", "24b", "32b", "16b-kmax0", "24b-kmax7"])
 def test_device_pack_and_splice_match_pack_frames(bits, rice_k_max):
-    """device_pack's words with splice_frames' host blocks are pack_frames'
-    words and counts, and serialize to the same bytes; rice_k_max 0 and 7
-    leave escape blocks of both kinds to the host."""
-    out, plan, nv = _chunk(bits, rice_k_max)
+    """device_pack's words with the host's blocks spliced in
+    (pack_frames(..., card=...)) are pack_frames' words and counts with
+    every block packed by bitio, and serialize to the same bytes;
+    rice_k_max 0 and 7 leave escape blocks of both kinds to the host."""
+    out, nv = _chunk(bits, rice_k_max)
+    plan = out["plan"]
     m = Metrics()
-    got, fetched = _spliced(out, plan, nv, m)
-    want = pack_frames(plan, out["residues"].numpy(), nv)
+    got, fetched = _spliced(out, nv, m)
+    want = pack_frames(plan, out["residues"], nv)
     for (gw, gc), (ww, wc) in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(gc, wc)
         np.testing.assert_array_equal(gw, ww)
@@ -204,10 +209,9 @@ def test_splice_plan_check_raises_on_a_count_mismatch(where):
     """A block whose count is not the plan's raises, whether the card
     counted it or the host packed it (an escape block whose planned count
     was planted one short)."""
-    out, plan, nv = _chunk(16, None if where == "card" else 0)
-    rw, rnw, cw, cnw = (t.numpy() for t in device_pack(
-        out, torch.from_numpy(nv)))
-    res = out["residues"].numpy()
+    out, nv = _chunk(16, None if where == "card" else 0)
+    plan, card = out["plan"], _card(out)
+    rnw = card[0][1]
     if where == "card":
         rnw[len(rnw) // 2] += 1
     else:
@@ -215,4 +219,4 @@ def test_splice_plan_check_raises_on_a_count_mismatch(where):
         plan = plan.copy()
         plan.reshape(-1, plan.shape[2])[row, PLAN.index("nw_res")] -= 1
     with pytest.raises(RuntimeError, match="disagree on block sizes"):
-        splice_frames(plan, res, nv, (rw, rnw), (cw, cnw))
+        pack_frames(plan, out["residues"], nv, card=card)
