@@ -1,19 +1,20 @@
 """Corpus-level batch codec: many heterogeneous WAV files per device chunk.
 
 Counterpart of sela_tpu/codec/corpus.py. The frames of all files of one
-group (same channel count, same <=24-bit class: the same mid/side rule) are
-concatenated along the frame axis and run through shared device chunks, so
-small files share device batches instead of paying for a launch sequence
-each. encode_files runs a group through encode_wav's chunk engine
-(codec/encoder.py::encode_chunks: pinned slots, the pipeline, the CUDA
-graph of a full chunk, the card's Rice pack on v1) and serializes each
-file's frames from the chunks that hold them, so each file's stream is
-byte-identical to its own encode_wav stream. decode_files runs decode_step
-chunks; it returns int32 PCM at every bit depth, as sela_tpu's does, so
-each decoded file equals the oracle's (but where a reconstruction leaves
-int32: both packages wrap it to 32 bits) and, wherever its samples fit its
-declared bit depth, its own decode_sela (which narrows <=16-bit output to
-int16 in both packages).
+group (same channel count, same <=24-bit class: the same mid/side rule) run
+one file after another through shared device chunks, so small files share
+device batches instead of paying for a launch sequence each. encode_files
+hands a group's files to encode_wav's chunk engine
+(codec/encoder.py::encode_chunks: each chunk framed from the files'
+channels straight into its pinned slot, the pipeline, the CUDA graph of a
+full chunk, the card's Rice pack on v1) and serializes each file's frames
+from the chunks that hold them, so each file's stream is byte-identical to
+its own encode_wav stream. decode_files runs decode_step chunks; it returns
+int32 PCM at every bit depth, as sela_tpu's does, so each decoded file
+equals the oracle's (but where a reconstruction leaves int32: both
+packages wrap it to 32 bits) and, wherever its samples fit its declared bit
+depth, its own decode_sela (which narrows <=16-bit output to int16 in both
+packages).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from ..utils.device import resolve_device
 from ..utils.metrics import NULL_METRICS
 from .decoder import merge_scans, scan, unpack
 from .encoder import (DEFAULT_CHUNK_FRAMES, check_frame_size, encode_chunks,
-                      frame_batches, serialize_frames)
+                      frame_counts, serialize_frames)
 from .pipeline import decode_step
 
 
@@ -66,14 +67,11 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     groups = _groups((w.n_channels, w.bits_per_sample <= 24) for w in wavs)
     for (C, allow_ms), idxs in groups.items():
         # encode_wav's wire rule, for the whole group
-        wire = (np.int16 if all(wavs[i].bits_per_sample <= 16 for i in idxs)
-                else np.int32)
-        with m.stage("host_frame"):
-            framed = [frame_batches(wavs[i].channels, frame_size, wire)
-                      for i in idxs]
-            x_all = np.concatenate([x for x, _ in framed])
-            nv_all = np.concatenate([nv for _, nv in framed])
-        bounds = np.cumsum([0] + [len(x) for x, _ in framed])
+        wire = (torch.int16 if all(wavs[i].bits_per_sample <= 16
+                                   for i in idxs) else torch.int32)
+        counts, _ = frame_counts([wavs[i].n_samples for i in idxs],
+                                 frame_size)
+        bounds = np.cumsum([0, *counts])
         pieces: list[list[bytes]] = [[] for _ in idxs]
 
         def emit(start, fcount, packed, nv):   # each file's frames in it
@@ -83,11 +81,11 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
                     pieces[j].append(serialize_frames(
                         packed, nv, lo - start, hi - start, m))
 
-        encode_chunks(x_all, nv_all, dev, chunk_frames,
-                      dict(allow_ms=allow_ms), m, emit)
-        for i, frames, (x, _) in zip(idxs, pieces, framed):
+        encode_chunks([wavs[i].channels for i in idxs], wire, frame_size,
+                      dev, chunk_frames, dict(allow_ms=allow_ms), m, emit)
+        for i, frames, F in zip(idxs, pieces, counts):
             header = container.SelaHeader(wavs[i].sample_rate,
-                                          wavs[i].bits_per_sample, C, len(x))
+                                          wavs[i].bits_per_sample, C, int(F))
             results[i] = container.serialize_file(header, frames)
         m.count("groups")
     m.count("files", len(wavs))

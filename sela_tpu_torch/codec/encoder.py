@@ -2,14 +2,16 @@
 
 Counterpart of sela_tpu/codec/encoder.py. One chunk engine
 (encode_chunks) runs every encode chunk, of encode_wav's track and of
-codec/corpus.py::encode_files' groups of files alike. The PCM, framed into
-[F, C, S] (int16 where it is ≤16-bit), is staged chunk by chunk in pinned
-host buffers and copied to the device without blocking,
-codec/pipeline.py::encode_step analyzes and renders it there (K3, K4, K1,
-K5, K6, and K8 under partitioned residues), and what the host needs comes
-back without blocking into pinned buffers, behind one CUDA event a chunk,
-while the card encodes chunks i+1..i+3 (a PIPELINE-deep software
-pipeline). The frames are serialized in order.
+codec/corpus.py::encode_files' groups of files alike. It takes the files'
+channels as they are: each chunk is framed straight into a pinned host
+buffer (frame_chunk: one numpy copy a file and channel that casts to the
+wire dtype, int16 where the PCM is ≤16-bit, and lays the samples out as
+[f, C, S]; no framed copy of a whole track or group exists), copied to the
+device without blocking, codec/pipeline.py::encode_step analyzes and
+renders it there (K3, K4, K1, K5, K6, and K8 under partitioned residues),
+and what the host needs comes back without blocking into pinned buffers,
+behind one CUDA event a chunk, while the card encodes chunks i+1..i+3 (a
+PIPELINE-deep software pipeline). The frames are serialized in order.
 
 On the card a full chunk (chunk_frames frames) replays a CUDA graph of its
 device work (codec/step_graph.py), captured after the first full chunk of
@@ -72,6 +74,57 @@ def frame_batches(channels: list[np.ndarray], frame_size: int = FRAME_SIZE,
     if n % frame_size:
         n_valid[-1] = n % frame_size
     return flat.reshape(C, F, frame_size).transpose(1, 0, 2), n_valid
+
+
+def frame_counts(lengths, frame_size: int = FRAME_SIZE):
+    """Files' sample counts -> (each file's frame count [files] int64,
+    n_valid [F] int32 of the files' frames one after another): what
+    frame_batches gives each file, from the lengths alone."""
+    lengths = np.asarray(lengths, np.int64)
+    counts = -(-lengths // frame_size)
+    n_valid = np.full(int(counts.sum()), frame_size, np.int32)
+    tail = lengths % frame_size
+    n_valid[(np.cumsum(counts) - 1)[tail > 0]] = tail[tail > 0]
+    return counts, n_valid
+
+
+def frame_chunk(x: torch.Tensor, files, first: np.ndarray, start: int,
+                stop: int) -> int:
+    """Frame frames [start, stop) of the files' frames one after another
+    into x[:stop - start] ([f, C, S] host tensor in the wire dtype): for
+    each file and channel one numpy copy of its full frames, a [k, S] view
+    of the channel, cast in the copy (as frame_batches casts), then its
+    last partial frame's samples and that frame's padding zeroed. Every
+    element of x[:stop - start] is written once and nothing else is, so x
+    may hold anything before. files: one list of C channels a file; first:
+    [files + 1] the first frame of each file (exclusive cumsum of
+    frame_counts' counts). Returns the elements written.
+
+    One thread by design: PyTorch's intra-op pool, woken for each copy,
+    framed no faster inside the encode pipeline on an H100 host and far
+    slower for many small files (PERF.md §6)."""
+    S = x.shape[2]
+    out = x.numpy()
+    written = 0
+    j = int(np.searchsorted(first, start, side="right")) - 1
+    while j < len(files) and first[j] < stop:
+        f0 = int(first[j])
+        lo, hi = max(f0, start), min(int(first[j + 1]), stop)
+        rows = out[lo - start:hi - start]
+        for c, ch in enumerate(files[j]):
+            src = np.asarray(ch)
+            a, b = (lo - f0) * S, min((hi - f0) * S, len(src))
+            full = (b - a) // S
+            np.copyto(rows[:full, c], src[a:a + full * S].reshape(full, S),
+                      casting="unsafe")
+            written += full * S
+            if full < hi - lo:   # the file's last frame, partial
+                tail = b - a - full * S
+                rows[full, c, :tail] = src[a + full * S:b]
+                rows[full, c, tail:] = 0
+                written += S
+        j += 1
+    return written
 
 
 def check_frame_size(frame_size) -> None:
@@ -286,21 +339,28 @@ class _Slot:
         return res32
 
 
-def encode_chunks(x: np.ndarray, n_valid: np.ndarray, dev: torch.device,
-                  chunk_frames: int, step: dict, metrics, emit) -> None:
-    """Encode framed PCM on `dev` chunk by chunk, PIPELINE chunks in
-    flight: the engine of encode_wav and encode_files.
+def encode_chunks(files: list, wire: torch.dtype, frame_size: int,
+                  dev: torch.device, chunk_frames: int, step: dict, metrics,
+                  emit) -> None:
+    """Encode the files' frames, one file after another, on `dev` chunk by
+    chunk, PIPELINE chunks in flight: the engine of encode_wav and
+    encode_files.
 
-    x: [F, C, S] in the wire dtype (int16 only where the PCM is ≤16-bit);
-    n_valid: [F] int32; step: encode_step's profile knobs. emit(start,
-    fcount, packed, nv) is called for each chunk in order, inside its
-    host_pack stage, with pack_frames' result for frames [start, start +
-    fcount) and their n_valid. metrics: optional Metrics sink."""
+    files: one list of C channels a file; wire: the dtype the frames cross
+    in (int16 only where the PCM is ≤16-bit); frame_size: S; step:
+    encode_step's profile knobs. Each chunk is framed straight into its
+    pinned slot (frame_chunk). emit(start, fcount, packed, nv) is called
+    for each chunk in order, inside its host_pack stage, with pack_frames'
+    result for frames [start, start + fcount) and their n_valid. metrics:
+    optional Metrics sink."""
     m = metrics or NULL_METRICS
     cuda = dev.type == "cuda"
-    F, C, S = x.shape
-    wire16 = x.dtype == np.int16
-    wire = torch.int16 if wire16 else torch.int32
+    if any(len(ch) != len(f[0]) for f in files for ch in f):
+        raise ValueError("a file's channels differ in length")
+    counts, n_valid = frame_counts([len(f[0]) for f in files], frame_size)
+    first = np.concatenate([[0], np.cumsum(counts)])
+    F, C, S = len(n_valid), len(files[0]), frame_size
+    wire16 = wire == torch.int16
     # v2's partitioned blocks need their residues on the host; on the CPU
     # the host is the packer
     on_card = cuda and step.get("partition", 1) == 1
@@ -329,8 +389,9 @@ def encode_chunks(x: np.ndarray, n_valid: np.ndarray, dev: torch.device,
         stop = min(start + chunk_frames, F)
         fcount = stop - start
         with m.stage("host_frame"):
-            slot.x.numpy()[:fcount] = x[start:stop]
+            written = frame_chunk(slot.x, files, first, start, stop)
             slot.nv.numpy()[:fcount] = n_valid[start:stop]
+        m.count("framed_bytes", written * slot.x.element_size())
         with m.stage("device_dispatch"):
             graph = (step_graph.GRAPHS.get(key) if cuda and fcount == full
                      else None)
@@ -397,11 +458,11 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     optional utils.metrics.Metrics sink (stages host_frame /
     device_dispatch / device_fetch / host_pack, and inside host_pack
     pack_gather / rice_count / rice_pack / emit; counters frames, chunks,
-    int32_fetch, pack_blocks_device, pack_blocks_host, step_graph_replays,
-    step_graph_captures, step_eager, pcm_bytes, coded_bytes;
-    utils/metrics.py). v1 encodes on the card pack their plain
-    blocks there (device_pack), the rest on the host (pack_frames). tags:
-    optional metadata appended as a tags trailer (FORMAT.md §Tags).
+    framed_bytes, int32_fetch, pack_blocks_device, pack_blocks_host,
+    step_graph_replays, step_graph_captures, step_eager, pcm_bytes,
+    coded_bytes; utils/metrics.py). v1 encodes on the card pack their
+    plain blocks there (device_pack), the rest on the host (pack_frames).
+    tags: optional metadata appended as a tags trailer (FORMAT.md §Tags).
     """
     if w.n_samples == 0:
         raise ValueError("empty audio")
@@ -422,20 +483,18 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     dev = resolve_device(device)
     m = metrics or NULL_METRICS
 
-    with m.stage("host_frame"):
-        x, n_valid = frame_batches(
-            w.channels, frame_size,
-            np.int16 if w.bits_per_sample <= 16 else np.int32)
     frames: list[bytes] = []
     encode_chunks(
-        x, n_valid, dev, chunk_frames,
+        [w.channels], torch.int16 if w.bits_per_sample <= 16 else torch.int32,
+        frame_size, dev, chunk_frames,
         dict(allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
              partition=partition, ms_mode=ms_mode), m,
         lambda start, fcount, packed, nv: frames.append(
             serialize_frames(packed, nv, 0, fcount, m)))
 
+    (F,), _ = frame_counts([w.n_samples], frame_size)
     header = container.SelaHeader(w.sample_rate, w.bits_per_sample,
-                                  w.n_channels, len(x))
+                                  w.n_channels, int(F))
     buf = container.serialize_file(header, frames)
     if tags:
         buf += container.serialize_tags(tags)

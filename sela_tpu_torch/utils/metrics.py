@@ -9,9 +9,10 @@ Stage-name semantics (CUDA work is asynchronous, so host wall-time buckets
 do NOT equal device busy-time):
   encode: encode_wav, and encode_files, whose groups of files run the same
           chunk engine (codec/encoder.py::encode_chunks).
-          "host_frame" — framing (a track, or each file of a group and
-          their concatenation), and each chunk's staging into pinned
-          buffers; "device_dispatch" — encode_step's launches (or a
+          "host_frame" — each chunk framed from the files' channels
+          straight into its pinned slot (encoder.frame_chunk: one copy a
+          file and channel, cast to the wire dtype) with its n_valid;
+          "device_dispatch" — encode_step's launches (or a
           replay of its CUDA graph) and the async copies back;
           "device_fetch" — wait on the chunk's CUDA event and the int32
           fallback fetch; "host_pack" — the chunk's Rice pack
@@ -27,7 +28,9 @@ do NOT equal device busy-time):
           host_pack less those four is its self time. bitio's two passes
           run only where the host packs: v2, the CPU, and the escape
           blocks (k = 31) of the v1 path on the card.
-          Counters: "frames", "chunks"; "pack_blocks_device" /
+          Counters: "frames", "chunks"; "framed_bytes" — bytes
+          host_frame writes into slots, F C S times the wire dtype's size
+          when each sample and pad is written once; "pack_blocks_device" /
           "pack_blocks_host" — Rice blocks (residue and coefficient
           blocks together) packed on the card / by bitio; "int32_fetch" —
           chunks whose int32 residues were fetched after their event;

@@ -170,7 +170,9 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     and bitio's worker figures, and its record the port's own counters of
     the blocks bitio packed (pack_blocks_host: every block, on the CPU) and
     of the chunks encoded (chunks) and of those whose device step ran
-    eagerly (step_eager: every chunk on the CPU), here one."""
+    eagerly (step_eager: every chunk on the CPU), here one, and of the
+    bytes framed into the chunk's slot (framed_bytes: each sample and pad
+    once, on the int16 wire)."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -194,7 +196,9 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     if op == "encode":
         assert rec["pack_blocks_host"] == 2 * 3 * 2
         assert rec["chunks"] == rec["step_eager"] == 1
-        counters += ("pack_blocks_host", "chunks", "step_eager")
+        assert rec["framed_bytes"] == 3 * 2 * 2048 * 2
+        counters += ("pack_blocks_host", "chunks", "step_eager",
+                     "framed_bytes")
     m = JaxMetrics()
     for k in counters:
         m.count(k, rec[k])

@@ -121,7 +121,7 @@ def test_int32_fetch_counts_the_chunks_that_leave_int16(traced):
 
 def test_stage_counts_and_seconds(traced):
     """host_pack once a chunk, emit once for each file's frames in a
-    chunk, the framing once a group and once a chunk's staging."""
+    chunk, the framing once a chunk, straight into its slot."""
     wavs, _, m = traced
     n, c = m.stage_n, m.counters
     pieces = 0
@@ -129,9 +129,8 @@ def test_stage_counts_and_seconds(traced):
         bounds = np.cumsum([0] + [_frames(wavs[i]) for i in idxs])
         pieces += sum((hi - 1) // CHUNK - lo // CHUNK + 1
                       for lo, hi in zip(bounds[:-1], bounds[1:]))
-    assert n["host_frame"] == c["groups"] + c["chunks"]
-    assert (n["device_dispatch"] == n["device_fetch"] == n["host_pack"]
-            == c["chunks"])
+    assert (n["host_frame"] == n["device_dispatch"] == n["device_fetch"]
+            == n["host_pack"] == c["chunks"])
     # one gather before each block kind's native calls
     assert n["pack_gather"] == n["rice_count"] == n["rice_pack"] == (
         2 * c["chunks"])

@@ -10,6 +10,10 @@
     near-ties);
 (d) the pinned-corpus compression ratio holds (tests/data/pinned_ratio.json,
     +2% allowed, as the JAX package's own gate);
+(e) the chunk engine frames each chunk straight into its slot
+    (codec.encoder.frame_chunk) exactly as frame_batches frames the whole
+    track, padding zeros included, over slots that held anything before;
+    and streams whose slots are reused keep their bytes;
 plus the profile checks: the partitioned render leaves silence
 unpartitioned, and BitstreamProfile's validation errors are the JAX
 package's. The encode_step comparison (b) is
@@ -31,10 +35,13 @@ from sela_tpu.config import BitstreamProfile as JaxProfile
 from sela_tpu.kernels.encode import analyze_pallas
 from sela_tpu.ref import codec as ref_codec
 from sela_tpu.ref.wav import WavData
+from sela_tpu_torch.codec import corpus
 from sela_tpu_torch.codec.decoder import decode_sela
-from sela_tpu_torch.codec.encoder import encode_wav, frame_batches
+from sela_tpu_torch.codec.encoder import (PIPELINE, encode_wav, frame_batches,
+                                          frame_chunk, frame_counts)
 from sela_tpu_torch.codec.pipeline import _render_rows, encode_step
 from sela_tpu_torch.config import BitstreamProfile
+from sela_tpu_torch.utils.metrics import Metrics
 
 CHUNK = 8   # the JAX encoder's and decoder's chunk, as in the other tests
 S = 2048
@@ -153,6 +160,102 @@ def test_pinned_corpus_ratio():
     back = decode_sela(buf, device="cpu")
     for a, b in zip(back.channels, w.channels):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------- (e) framing into the slots --
+
+FS = 64   # a small frame: many frames and chunks from short clips
+FRAMED = {  # a case's files' lengths in samples
+    "whole_frames": [3 * FS],
+    "one_over": [3 * FS + 1],
+    "one_sample": [1],
+    "group": [2 * FS + 7, 1, 5 * FS, 3 * FS + 33, FS - 1],
+}
+
+
+@pytest.mark.parametrize("case", sorted(FRAMED))
+@pytest.mark.parametrize("C", [1, 2])
+@pytest.mark.parametrize("wire", [torch.int16, torch.int32],
+                         ids=["int16", "int32"])
+def test_frame_chunk_matches_frame_batches(case, C, wire):
+    """Every chunk framed into a poisoned slot equals frame_batches' frames
+    of the files one after another, padding zeros included, and each
+    element of the chunk is written once."""
+    rng = np.random.default_rng(len(case) + C)
+    hi = 1 << (15 if wire == torch.int16 else 31)
+    files = [[rng.integers(-hi, hi, n).astype(np.int32) for _ in range(C)]
+             for n in FRAMED[case]]
+    dtype = np.int16 if wire == torch.int16 else np.int32
+    framed = [frame_batches(f, FS, dtype) for f in files]
+    want = np.concatenate([x for x, _ in framed])
+    counts, n_valid = frame_counts(FRAMED[case], FS)
+    np.testing.assert_array_equal(counts, [len(x) for x, _ in framed])
+    np.testing.assert_array_equal(n_valid,
+                                  np.concatenate([nv for _, nv in framed]))
+    first = np.concatenate([[0], np.cumsum(counts)])
+    F = len(want)
+    for chunk in sorted({1, 2, 3, F, F + 2}):
+        slot = torch.empty((chunk, C, FS), dtype=wire)
+        written = 0
+        for start in range(0, F, chunk):
+            stop = min(start + chunk, F)
+            slot.fill_(-1)
+            written += frame_chunk(slot, files, first, start, stop)
+            np.testing.assert_array_equal(slot[:stop - start].numpy(),
+                                          want[start:stop],
+                                          err_msg=f"chunk {chunk} at {start}")
+            assert (slot[stop - start:] == -1).all()   # nothing past it
+        assert written == F * C * FS
+
+
+def _reused(rng, n: int, C: int, bits: int) -> WavData:
+    return WavData(44100, bits, _music(rng, n, C, bits))
+
+
+@pytest.mark.parametrize("bits", [16, 24])
+def test_reused_slots_keep_the_streams(bits):
+    """encode_wav over more chunks than slots, its tail chunk's partial
+    frame in a reused slot, and encode_files over a group whose files end
+    mid-chunk: each file's stream is its one-chunk encode_wav stream,
+    decodes exactly through the oracle, and framed_bytes counts each
+    sample and pad once, F C S times the wire's size."""
+    chunk, wire = 2, 2 if bits <= 16 else 4
+    rng = np.random.default_rng(bits)
+    track = _reused(rng, (2 * chunk * PIPELINE + 2) * FS + 5, 2, bits)
+    F = -(-track.n_samples // FS)
+    assert F > PIPELINE * chunk and F % chunk   # reused slots, a tail chunk
+    m = Metrics()
+    buf = encode_wav(track, frame_size=FS, chunk_frames=chunk, device="cpu",
+                     metrics=m)
+    assert buf == encode_wav(track, frame_size=FS, chunk_frames=F,
+                             device="cpu")
+    assert m.counters["framed_bytes"] == F * 2 * FS * wire
+    group = [_reused(rng, n, 2, bits)
+             for n in (3 * FS + 9, 2 * FS, 4 * FS + 1, 1, 5 * FS - 3)]
+    group.append(track)
+    m = Metrics()
+    bufs = corpus.encode_files(group, chunk_frames=chunk, frame_size=FS,
+                               device="cpu", metrics=m)
+    frames = [-(-w.n_samples // FS) for w in group]
+    assert m.counters["chunks"] > PIPELINE
+    assert m.counters["framed_bytes"] == sum(frames) * 2 * FS * wire
+    assert bufs[-1] == buf
+    for w, b, f in zip(group, bufs, frames):
+        assert b == encode_wav(w, frame_size=FS, chunk_frames=f,
+                               device="cpu")
+        back = ref_codec.decode_sela(b)
+        for got, want in zip(back.channels, w.channels):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n1", [FS + 3, FS + 5])
+def test_channels_of_unequal_length_are_refused(n1):
+    w = WavData(44100, 16, [np.zeros(FS + 4, np.int32),
+                            np.zeros(n1, np.int32)])
+    with pytest.raises(ValueError, match="differ in length"):
+        encode_wav(w, frame_size=FS, device="cpu")
+    with pytest.raises(ValueError, match="differ in length"):
+        corpus.encode_files([w], frame_size=FS, device="cpu")
 
 
 # -------------------------------------------------------------- profile --
