@@ -111,25 +111,30 @@ def _exclusive_cumsum(a: np.ndarray) -> np.ndarray:
     return out
 
 
-def unpack(sf: dict, lo: int, hi: int, channels: int):
+def unpack(sf: dict, lo: int, hi: int, channels: int,
+           metrics=NULL_METRICS):
     """Host-unpack the subframes [lo, hi) of a scan (whole frames): their
     dense rows in file order and where each goes. Returns (rows, qrows
     [n, 32], erows [n, S] int32, fits16): row i belongs at (frame, channel)
     row rows[i], counted from frame lo // channels; fits16 says every
     residue fits int16. The coefficients are range-checked
-    (check_coeff_range) before any row is built."""
+    (check_coeff_range) before any row is built. Each of bitio's two
+    unpacks (coefficients, residues) is a `rice_unpack` span of
+    `metrics`."""
     nwc = sf["nw_coeff"][lo:hi]
     nwr = sf["nw_res"][lo:hi]
     order = sf["order"][lo:hi]
     res_counts = sf["res_counts"][lo:hi]
     cw, rw = sf["cw_offs"], sf["rw_offs"]
-    qvals = bitio.unpack_blocks_flat(
-        sf["coeff_words"][cw[lo] : cw[hi]], _exclusive_cumsum(nwc)[:-1], nwc,
-        order, sf["k_coeff"][lo:hi])
+    with metrics.stage("rice_unpack"):
+        qvals = bitio.unpack_blocks_flat(
+            sf["coeff_words"][cw[lo] : cw[hi]], _exclusive_cumsum(nwc)[:-1],
+            nwc, order, sf["k_coeff"][lo:hi])
     frame_mod.check_coeff_range(qvals)
-    evals = bitio.unpack_blocks_flat(
-        sf["res_words"][rw[lo] : rw[hi]], _exclusive_cumsum(nwr)[:-1], nwr,
-        res_counts, sf["k_res"][lo:hi], sf["k_res4"][lo:hi])
+    with metrics.stage("rice_unpack"):
+        evals = bitio.unpack_blocks_flat(
+            sf["res_words"][rw[lo] : rw[hi]], _exclusive_cumsum(nwr)[:-1],
+            nwr, res_counts, sf["k_res"][lo:hi], sf["k_res4"][lo:hi])
     n_sf = hi - lo
     qrows = np.zeros((n_sf, MAX_ORDER), np.int32)
     qrows[np.arange(MAX_ORDER)[None, :] < order[:, None]] = qvals
@@ -171,8 +176,10 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
 
     device="cpu" runs the plain PyTorch versions of the kernels; with no
     device named and no CUDA available this raises. metrics: optional
-    utils.metrics.Metrics sink (stages host_parse / host_unpack /
-    device_fetch).
+    utils.metrics.Metrics sink (stages host_parse, host_unpack nesting
+    rice_unpack, device_dispatch, device_fetch, host_assemble; counters
+    frames, chunks, int32_wire_chunks, coded_bytes, pcm_bytes;
+    utils/metrics.py).
     """
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
@@ -205,7 +212,7 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
         with m.stage("host_unpack"):
             # dense padded rows in file order, permuted to (frame, channel)
             # order via the channel bytes
-            rows, qrows, erows, fits16 = unpack(sf, lo, hi, C)
+            rows, qrows, erows, fits16 = unpack(sf, lo, hi, C, m)
             # int16 wire format for the host->device residue copy when every
             # value fits (decode_step upcasts on the device)
             res_t = slot.residues(torch.int16 if fits16 else torch.int32)[:n_sf]
@@ -213,7 +220,9 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
             slot.qcoeffs.numpy()[rows] = qrows
             slot.order.numpy()[rows] = sf["order"][lo:hi]
             slot.sftype.numpy()[rows] = sf["sftype"][lo:hi]
-
+        m.count("chunks")
+        m.count("int32_wire_chunks", int(not fits16))
+        with m.stage("device_dispatch"):
             def put(t: torch.Tensor, *shape):
                 return t[:n_sf].view(*shape).to(dev, non_blocking=True)
 
@@ -239,9 +248,11 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
             # copy out of the staging buffer before its slot is reused
             pcm = x.numpy().astype(np.int32)
         m.count("frames", fcount)
-        valid = np.arange(S)[None, :] < n_valid[start : start + fcount, None]
-        for c in range(C):
-            chans_out[c].append(pcm[:, c, :][valid])
+        with m.stage("host_assemble"):
+            valid = (np.arange(S)[None, :]
+                     < n_valid[start : start + fcount, None])
+            for c in range(C):
+                chans_out[c].append(pcm[:, c, :][valid])
 
     inflight = []
     for index, start in enumerate(range(0, F, chunk_frames)):
@@ -251,10 +262,11 @@ def decode_sela(buf: bytes, chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     for item in inflight:
         collect(item)
 
-    channels = [
-        np.concatenate(parts) if parts else np.zeros(0, np.int32)
-        for parts in chans_out
-    ]
+    with m.stage("host_assemble"):
+        channels = [
+            np.concatenate(parts) if parts else np.zeros(0, np.int32)
+            for parts in chans_out
+        ]
     w = WavData(header.sample_rate, header.bits_per_sample, channels)
     m.count("coded_bytes", len(buf))
     m.count("pcm_bytes", w.n_samples * w.n_channels * w.bits_per_sample // 8)

@@ -46,10 +46,23 @@ do NOT equal device busy-time):
           "bitio_workers_on_cpu" — the same workers' on-CPU seconds
           (CLOCK_THREAD_CPUTIME_ID, which some kernels advance only
           in 10 ms ticks: a sum over many workers, not one call's).
-  decode: "host_parse" — container scan; "host_unpack" — Rice unpack +
-          scatter into pinned buffers + async H2D and kernel launches;
+  decode: decode_sela (codec/decoder.py).
+          "host_parse" — container scan and trailer; "host_unpack" —
+          a chunk's unpack (decoder.unpack: bitio's two unpacks, the
+          coefficient range check, the scatter into dense rows) and the
+          rows' writes into its pinned slot, which nests:
+            "rice_unpack" — bitio's unpack_blocks_flat, one span for the
+                            coefficients and one for the residues;
+          "device_dispatch" — the chunk's async H2D copies, decode_step's
+          launches and PyTorch glue, the async D2H copy into the slot and
+          its CUDA event (on the CPU: the whole decode_step);
           "device_fetch" — wait on the chunk's CUDA event (device compute
-          not hidden behind later host work + D2H PCM) and the host copy.
+          not hidden behind later host work + D2H PCM) and the int32
+          upcast; "host_assemble" — each chunk's valid samples gathered
+          per channel, and the channels' final concatenation.
+          Counters: "frames", "chunks"; "int32_wire_chunks" — chunks
+          whose residues crossed on the int32 wire, not all fitting
+          int16 (0 where none did); "coded_bytes" and "pcm_bytes".
 A nested stage's seconds are also counted in its parent's, so stage
 seconds do not add up to the operation's wall time.
 

@@ -172,7 +172,9 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     of the chunks encoded (chunks) and of those whose device step ran
     eagerly (step_eager: every chunk on the CPU), here one, and of the
     bytes framed into the chunk's slot (framed_bytes: each sample and pad
-    once, on the int16 wire)."""
+    once, on the int16 wire). Decode's stages include host_unpack's
+    rice_unpack spans, and its record the chunks decoded (chunks), here
+    one, and of those on the int32 wire (int32_wire_chunks), here none."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -191,14 +193,18 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
                        "host_pack", "pack_gather", "rice_count", "rice_pack",
                        "emit", "bitio_workers", "bitio_workers_on_cpu"}
                       if op == "encode" else
-                      {"host_parse", "host_unpack", "device_fetch"})
-    counters = ("frames", "pcm_bytes", "coded_bytes")
+                      {"host_parse", "host_unpack", "rice_unpack",
+                       "device_dispatch", "device_fetch", "host_assemble"})
+    counters = ("frames", "pcm_bytes", "coded_bytes", "chunks")
+    assert rec["chunks"] == 1
     if op == "encode":
         assert rec["pack_blocks_host"] == 2 * 3 * 2
-        assert rec["chunks"] == rec["step_eager"] == 1
+        assert rec["step_eager"] == 1
         assert rec["framed_bytes"] == 3 * 2 * 2048 * 2
-        counters += ("pack_blocks_host", "chunks", "step_eager",
-                     "framed_bytes")
+        counters += ("pack_blocks_host", "step_eager", "framed_bytes")
+    else:
+        assert rec["int32_wire_chunks"] == 0
+        counters += ("int32_wire_chunks",)
     m = JaxMetrics()
     for k in counters:
         m.count(k, rec[k])
