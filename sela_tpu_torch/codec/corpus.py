@@ -7,9 +7,10 @@ device batches instead of paying for a launch sequence each. encode_files
 hands a group's files to encode_wav's chunk engine
 (codec/encoder.py::encode_chunks: each chunk framed from the files'
 channels straight into its pinned slot, the pipeline, the CUDA graph of a
-full chunk, the card's Rice pack on v1) and serializes each file's frames
-from the chunks that hold them, so each file's stream is byte-identical to
-its own encode_wav stream. decode_files runs decode_step chunks; it returns
+full chunk, the card's Rice pack on v1) and emits each file's header and
+frames, from the chunks that hold them, into one stream buffer
+(encoder.StreamBuffer), where each file is one slice, so each file's
+stream is byte-identical to its own encode_wav stream. decode_files runs decode_step chunks; it returns
 int32 PCM at every bit depth, as sela_tpu's does, so each decoded file
 equals the oracle's (but where a reconstruction leaves int32: both
 packages wrap it to 32 bits) and, wherever its samples fit its declared bit
@@ -27,8 +28,8 @@ from ..ref.wav import WavData
 from ..utils.device import resolve_device
 from ..utils.metrics import NULL_METRICS
 from .decoder import merge_scans, scan, unpack
-from .encoder import (DEFAULT_CHUNK_FRAMES, check_frame_size, encode_chunks,
-                      frame_counts, serialize_frames)
+from .encoder import (DEFAULT_CHUNK_FRAMES, StreamBuffer, check_frame_size,
+                      encode_chunks, frame_counts, stream_bound)
 from .pipeline import decode_step
 
 
@@ -65,28 +66,41 @@ def encode_files(wavs: list[WavData], chunk_frames: int = DEFAULT_CHUNK_FRAMES,
     m = metrics or NULL_METRICS
     results: list[bytes | None] = [None] * len(wavs)
     groups = _groups((w.n_channels, w.bits_per_sample <= 24) for w in wavs)
+    counts = {key: frame_counts([wavs[i].n_samples for i in idxs],
+                                frame_size)[0]
+              for key, idxs in groups.items()}
+    # one stream buffer for the run, a group's files one after another in
+    # it from offset 0
+    stream = StreamBuffer(max((stream_bound(counts[key], key[0], frame_size,
+                                            False) for key in groups),
+                              default=0), m)
     for (C, allow_ms), idxs in groups.items():
         # encode_wav's wire rule, for the whole group
         wire = (torch.int16 if all(wavs[i].bits_per_sample <= 16
                                    for i in idxs) else torch.int32)
-        counts, _ = frame_counts([wavs[i].n_samples for i in idxs],
-                                 frame_size)
-        bounds = np.cumsum([0, *counts])
-        pieces: list[list[bytes]] = [[] for _ in idxs]
+        bounds = np.cumsum([0, *counts[C, allow_ms]])
+        spans = [[0, 0] for _ in idxs]   # each file's bytes in the buffer
+        stream.pos = 0
 
         def emit(start, fcount, packed, nv):   # each file's frames in it
             for j, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
-                lo, hi = max(lo, start), min(hi, start + fcount)
-                if lo < hi:
-                    pieces[j].append(serialize_frames(
-                        packed, nv, lo - start, hi - start, m))
+                a, b = max(lo, start), min(hi, start + fcount)
+                if a < b:
+                    if a == lo:   # the file's first frame: its header first
+                        spans[j][0] = stream.pos
+                        wav = wavs[idxs[j]]
+                        stream.write(container.serialize_file(
+                            container.SelaHeader(
+                                wav.sample_rate, wav.bits_per_sample, C,
+                                int(hi - lo)), []))
+                    stream.frames(packed, nv, a - start, b - start)
+                    spans[j][1] = stream.pos
 
         encode_chunks([wavs[i].channels for i in idxs], wire, frame_size,
                       dev, chunk_frames, dict(allow_ms=allow_ms), m, emit)
-        for i, frames, F in zip(idxs, pieces, counts):
-            header = container.SelaHeader(wavs[i].sample_rate,
-                                          wavs[i].bits_per_sample, C, int(F))
-            results[i] = container.serialize_file(header, frames)
+        for i, (a, b) in zip(idxs, spans):
+            with m.stage("host_assemble"):
+                results[i] = stream.take(a, b)
         m.count("groups")
     m.count("files", len(wavs))
     m.count("pcm_bytes", sum(w.n_samples * w.n_channels * w.bits_per_sample

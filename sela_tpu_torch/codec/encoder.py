@@ -11,7 +11,10 @@ device without blocking, codec/pipeline.py::encode_step analyzes and
 renders it there (K3, K4, K1, K5, K6, and K8 under partitioned residues),
 and what the host needs comes back without blocking into pinned buffers,
 behind one CUDA event a chunk, while the card encodes chunks i+1..i+3 (a
-PIPELINE-deep software pipeline). The frames are serialized in order.
+PIPELINE-deep software pipeline). The frames are serialized in order, by
+the native emit, straight into the calling thread's stream buffer
+(StreamBuffer: reused from run to run, so each coded byte is written once
+there and copied once into the bytes returned).
 
 On the card a full chunk (chunk_frames frames) replays a CUDA graph of its
 device work (codec/step_graph.py), captured after the first full chunk of
@@ -37,13 +40,14 @@ Either way the steady state never waits on the device mid-chunk.
 """
 from __future__ import annotations
 
+import threading
 from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..config import BitstreamProfile
-from ..format import FRAME_SIZE, MAX_ORDER, SYNC
+from ..format import FRAME_SIZE, MAX_ORDER, RESIDUE_PARTS, SYNC
 from ..native import bitio
 from ..ops.pack import pack_blocks_at
 from ..ref import container
@@ -266,10 +270,12 @@ def device_chunk(x: torch.Tensor, n_valid: torch.Tensor, on_card: bool,
 
 
 def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int,
-                     metrics=None) -> bytes:
+                     metrics=None, out: np.ndarray | None = None):
     """Serialize frames [lo, hi) of a pack_frames result (native library);
-    nv: [F] valid samples a frame of the whole run. metrics: optional
-    Metrics sink (stage emit)."""
+    nv: [F] valid samples a frame of the whole run. Returns their bytes, or
+    with out (a uint8 array, at least frames_bytes long) writes them at its
+    start and returns their count. metrics: optional Metrics sink (stage
+    emit)."""
     cols, coeff, resid = packed
     C = len(cols["order"]) // len(nv)
     s = slice(lo * C, hi * C)
@@ -285,7 +291,73 @@ def serialize_frames(packed, nv: np.ndarray, lo: int, hi: int,
             hi - lo, C, SYNC, nv[lo:hi],
             np.tile(np.arange(C, dtype=np.int32), hi - lo),
             cols["sftype"][s], cols["order"][s], cols["k_coeff"][s], cwc,
-            cols["k_res"][s], rwc, cw, rw, sf_kr4=cols["k_res4"][s])
+            cols["k_res"][s], rwc, cw, rw, sf_kr4=cols["k_res4"][s], out=out)
+
+
+def frames_bytes(packed, nv: np.ndarray, lo: int, hi: int) -> int:
+    """The bytes serialize_frames writes for frames [lo, hi), from the
+    plan's word counts (which pack_frames checked against the words)."""
+    cols = packed[0]
+    C = len(cols["order"]) // len(nv)
+    s = slice(lo * C, hi * C)
+    return bitio.frames_size(hi - lo, cols["k_res"][s], cols["nw_coeff"][s],
+                             cols["nw_res"][s])
+
+
+def stream_bound(counts, C: int, S: int, partitioned: bool) -> int:
+    """The most bytes that files of counts[j] frames of C channels and S
+    samples a frame can code to, headers included, tags not: a block's
+    words never outnumber its values, as a plain block at its chosen k
+    never takes more bits than the 32-bit escape (FORMAT.md §Rice coding;
+    device_pack's bound), so a subframe holds at most S residue and
+    MAX_ORDER coefficient words, after 11 bytes of fields (RESIDUE_PARTS
+    more where partitioned)."""
+    sub = 11 + (RESIDUE_PARTS if partitioned else 0) + 4 * (S + MAX_ORDER)
+    return (len(counts) * container.HEADER_SIZE
+            + int(np.sum(counts, dtype=np.int64)) * (6 + C * sub))
+
+
+_local = threading.local()
+
+
+class StreamBuffer:
+    """The calling thread's stream buffer, into which the frame emit writes
+    each coded byte once: a uint8 array kept in a threading.local, so a
+    thread's later runs reuse its pages instead of faulting new ones.
+    Taken for a run with room for `nbytes` (a new np.empty where the
+    thread's is shorter or missing; counter emit_buffer_allocs), written
+    from offset 0, and grown, its used prefix copied, if a write ever
+    finds too little room. take() copies a slice out as bytes."""
+
+    def __init__(self, nbytes: int, metrics):
+        self.m = metrics
+        self.pos = 0
+        self.buf = getattr(_local, "buf", None)
+        grow = self.buf is None or len(self.buf) < nbytes
+        if grow:
+            self.buf = _local.buf = np.empty(nbytes, np.uint8)
+        self.m.count("emit_buffer_allocs", int(grow))
+
+    def reserve(self, n: int) -> np.ndarray:
+        """The free bytes, at least n of them."""
+        if self.pos + n > len(self.buf):
+            grown = np.empty(max(2 * len(self.buf), self.pos + n), np.uint8)
+            grown[:self.pos] = self.buf[:self.pos]
+            self.buf = _local.buf = grown
+            self.m.count("emit_buffer_allocs")
+        return self.buf[self.pos:]
+
+    def write(self, data: bytes) -> None:
+        self.reserve(len(data))[:len(data)] = np.frombuffer(data, np.uint8)
+        self.pos += len(data)
+
+    def frames(self, packed, nv: np.ndarray, lo: int, hi: int) -> None:
+        """Emit frames [lo, hi) of a pack_frames result here."""
+        free = self.reserve(frames_bytes(packed, nv, lo, hi))
+        self.pos += serialize_frames(packed, nv, lo, hi, self.m, out=free)
+
+    def take(self, start: int, stop: int) -> bytes:
+        return self.buf[start:stop].tobytes()
 
 
 class _Slot:
@@ -457,11 +529,12 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     with no device named and no CUDA available this raises. metrics:
     optional utils.metrics.Metrics sink (stages host_frame /
     device_dispatch / device_fetch / host_pack, and inside host_pack
-    pack_gather / rice_count / rice_pack / emit; counters frames, chunks,
-    framed_bytes, int32_fetch, pack_blocks_device, pack_blocks_host,
-    step_graph_replays, step_graph_captures, step_eager, pcm_bytes,
-    coded_bytes; utils/metrics.py). v1 encodes on the card pack their
-    plain blocks there (device_pack), the rest on the host (pack_frames).
+    pack_gather / rice_count / rice_pack / emit, then host_assemble;
+    counters frames, chunks, framed_bytes, int32_fetch, pack_blocks_device,
+    pack_blocks_host, step_graph_replays, step_graph_captures, step_eager,
+    emit_buffer_allocs, pcm_bytes, coded_bytes; utils/metrics.py). v1
+    encodes on the card pack their plain blocks there (device_pack), the
+    rest on the host (pack_frames).
     tags: optional metadata appended as a tags trailer (FORMAT.md §Tags).
     """
     if w.n_samples == 0:
@@ -483,21 +556,23 @@ def encode_wav(w: WavData, frame_size: int = FRAME_SIZE,
     dev = resolve_device(device)
     m = metrics or NULL_METRICS
 
-    frames: list[bytes] = []
+    (F,), _ = frame_counts([w.n_samples], frame_size)
+    header = container.SelaHeader(w.sample_rate, w.bits_per_sample,
+                                  w.n_channels, int(F))
+    trailer = container.serialize_tags(tags) if tags else b""
+    stream = StreamBuffer(stream_bound([F], w.n_channels, frame_size,
+                                       partition != 1) + len(trailer), m)
+    stream.write(container.serialize_file(header, []))
     encode_chunks(
         [w.channels], torch.int16 if w.bits_per_sample <= 16 else torch.int32,
         frame_size, dev, chunk_frames,
         dict(allow_ms=allow_ms, max_order=max_order, rice_k_max=rice_k_max,
              partition=partition, ms_mode=ms_mode), m,
-        lambda start, fcount, packed, nv: frames.append(
-            serialize_frames(packed, nv, 0, fcount, m)))
-
-    (F,), _ = frame_counts([w.n_samples], frame_size)
-    header = container.SelaHeader(w.sample_rate, w.bits_per_sample,
-                                  w.n_channels, int(F))
-    buf = container.serialize_file(header, frames)
-    if tags:
-        buf += container.serialize_tags(tags)
+        lambda start, fcount, packed, nv: stream.frames(packed, nv, 0,
+                                                        fcount))
+    with m.stage("host_assemble"):
+        stream.write(trailer)
+        buf = stream.take(0, stream.pos)
     m.count("pcm_bytes", w.n_samples * w.n_channels * w.bits_per_sample // 8)
     m.count("coded_bytes", len(buf))
     return buf

@@ -119,14 +119,30 @@ def pack_blocks_flat(values: np.ndarray, offs: np.ndarray, counts: np.ndarray,
     return out, word_counts
 
 
+def frames_size(num_frames: int, sf_kr: np.ndarray, sf_nwc: np.ndarray,
+                sf_nwr: np.ndarray) -> int:
+    """Bytes emit_frames writes for num_frames frames whose subframes have
+    residue parameters sf_kr and coefficient / residue word counts sf_nwc
+    / sf_nwr (FORMAT.md frame layout)."""
+    n_part = int((np.asarray(sf_kr) == RICE_PARTITION_MARKER).sum())
+    return (6 * num_frames + 11 * len(sf_kr) + RESIDUE_PARTS * n_part
+            + 4 * int(np.sum(sf_nwc, dtype=np.int64)
+                      + np.sum(sf_nwr, dtype=np.int64)))
+
+
 def emit_frames(num_frames: int, channels: int, sync: int,
                 n_samples: np.ndarray, sf_channel: np.ndarray,
                 sf_type: np.ndarray, sf_order: np.ndarray, sf_kc: np.ndarray,
                 sf_nwc: np.ndarray, sf_kr: np.ndarray, sf_nwr: np.ndarray,
                 coeff_words: np.ndarray, res_words: np.ndarray,
-                sf_kr4: np.ndarray | None = None) -> bytes:
+                sf_kr4: np.ndarray | None = None, out: np.ndarray | None = None):
     """Serialize frames (FORMAT.md frame layout); the exact inverse of
-    scan_frames. Subframe arrays are in emit order (frame-major)."""
+    scan_frames. Subframe arrays are in emit order (frame-major).
+
+    out: None, and the frames come back as bytes; or a C-contiguous 1-D
+    uint8 array, into whose first bytes they are written, and their count
+    comes back. An `out` shorter than the frames raises ValueError before
+    any byte is written (the native emit checks no bound)."""
     lib = load()
     a32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)   # noqa: E731
     kr = a32(sf_kr)
@@ -143,17 +159,18 @@ def emit_frames(num_frames: int, channels: int, sync: int,
     if (int(nwc.astype(np.int64).sum()) != len(coeff_words)
             or int(nwr.astype(np.int64).sum()) != len(res_words)):
         raise ValueError("emit_frames: word counts do not match the words")
-    n_part = int((kr == RICE_PARTITION_MARKER).sum())
-    total = (6 * num_frames + 11 * n_sub + RESIDUE_PARTS * n_part
-             + 4 * (len(coeff_words) + len(res_words)))
-    out = np.zeros(total, np.uint8)
+    total = frames_size(num_frames, kr, nwc, nwr)
+    dest = np.empty(total, np.uint8) if out is None else out
+    if len(dest) < total:
+        raise ValueError(f"emit_frames: out holds {len(dest)} bytes of the "
+                         f"frames' {total}")
     written = lib.sela_emit_frames(
         num_frames, channels, sync, a32(n_samples), a32(sf_channel),
         a32(sf_type), a32(sf_order), a32(sf_kc), nwc, kr, kr4, nwr,
-        coeff_words, res_words, out)
+        coeff_words, res_words, dest)
     if written != total:
         raise RuntimeError(f"emit_frames wrote {written} of {total} bytes")
-    return out.tobytes()
+    return dest.tobytes() if out is None else total
 
 
 def unpack_blocks_flat(words: np.ndarray, word_offs: np.ndarray,

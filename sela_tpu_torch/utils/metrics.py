@@ -22,12 +22,16 @@ do NOT equal device busy-time):
                             block kind's native call (two spans a chunk);
             "rice_count"  — bitio's word-count pass (rice_block_words);
             "rice_pack"   — bitio's pack pass (rice_pack_blocks);
-            "emit"        — serialize_frames (word slicing, emit_frames):
-                            once a chunk, or once for each file's frames
-                            in a chunk;
+            "emit"        — serialize_frames (word slicing, emit_frames
+                            into the thread's stream buffer,
+                            encoder.StreamBuffer): once a chunk, or once
+                            for each file's frames in a chunk;
           host_pack less those four is its self time. bitio's two passes
           run only where the host packs: v2, the CPU, and the escape
-          blocks (k = 31) of the v1 path on the card.
+          blocks (k = 31) of the v1 path on the card. "host_assemble" —
+          after the last chunk, the tags trailer written and the stream
+          copied out of the buffer as bytes: once a stream (encode_files:
+          once a file).
           Counters: "frames", "chunks"; "framed_bytes" — bytes
           host_frame writes into slots, F C S times the wire dtype's size
           when each sample and pad is written once; "pack_blocks_device" /
@@ -38,8 +42,11 @@ do NOT equal device busy-time):
           graph (codec/step_graph.py), "step_graph_captures" — graphs
           captured, "step_eager" — chunks whose device step ran eagerly
           (every chunk on the CPU; on the card a tail chunk and a shape's
-          first full chunk); "pcm_bytes" and "coded_bytes"; encode_files
-          also "files" and "groups".
+          first full chunk); "emit_buffer_allocs" — allocations and
+          growths of the thread's stream buffer: 1 on a thread's first
+          run or on one that needs more room than any before, else 0;
+          "pcm_bytes" and "coded_bytes"; encode_files also "files" and
+          "groups".
           Timed inside the native library, outside Python (add_span):
           "bitio_workers" — the count and pack passes' worker threads,
           wall seconds summed over workers (n: workers run);

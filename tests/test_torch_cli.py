@@ -172,9 +172,12 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     of the chunks encoded (chunks) and of those whose device step ran
     eagerly (step_eager: every chunk on the CPU), here one, and of the
     bytes framed into the chunk's slot (framed_bytes: each sample and pad
-    once, on the int16 wire). Decode's stages include host_unpack's
-    rice_unpack spans, and its record the chunks decoded (chunks), here
-    one, and of those on the int32 wire (int32_wire_chunks), here none."""
+    once, on the int16 wire), then the stream's assembly (host_assemble)
+    and the allocations of the thread's stream buffer (emit_buffer_allocs:
+    none, as the encode before took it). Decode's stages include
+    host_unpack's rice_unpack spans, and its record the chunks decoded
+    (chunks), here one, and of those on the int32 wire
+    (int32_wire_chunks), here none."""
     _, wav = wav_file
     sela = tmp_path / "in.sela"
     assert main(["encode", str(wav), str(sela), "--cpu"]) == 0
@@ -191,7 +194,8 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
     stages = {k[:-2] for k in rec if k.endswith("_s")}
     assert stages == ({"host_frame", "device_dispatch", "device_fetch",
                        "host_pack", "pack_gather", "rice_count", "rice_pack",
-                       "emit", "bitio_workers", "bitio_workers_on_cpu"}
+                       "emit", "bitio_workers", "bitio_workers_on_cpu",
+                       "host_assemble"}
                       if op == "encode" else
                       {"host_parse", "host_unpack", "rice_unpack",
                        "device_dispatch", "device_fetch", "host_assemble"})
@@ -201,7 +205,9 @@ def test_log_json_emits_the_jax_stage_timers_record(op, wav_file, tmp_path,
         assert rec["pack_blocks_host"] == 2 * 3 * 2
         assert rec["step_eager"] == 1
         assert rec["framed_bytes"] == 3 * 2 * 2048 * 2
-        counters += ("pack_blocks_host", "step_eager", "framed_bytes")
+        assert rec["emit_buffer_allocs"] == 0
+        counters += ("pack_blocks_host", "step_eager", "framed_bytes",
+                     "emit_buffer_allocs")
     else:
         assert rec["int32_wire_chunks"] == 0
         counters += ("int32_wire_chunks",)

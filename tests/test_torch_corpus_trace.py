@@ -19,7 +19,8 @@ from sela_tpu_torch.utils import metrics as metrics_mod
 from sela_tpu_torch.utils.metrics import NULL_METRICS, STAGE, Metrics
 
 FS, CHUNK = 64, 4   # small frames and chunks: several chunks a group
-TOP = ("host_frame", "device_dispatch", "device_fetch", "host_pack")
+TOP = ("host_frame", "device_dispatch", "device_fetch", "host_pack",
+       "host_assemble")
 INNER = ("pack_gather", "rice_count", "rice_pack", "emit")
 
 
@@ -121,7 +122,8 @@ def test_int32_fetch_counts_the_chunks_that_leave_int16(traced):
 
 def test_stage_counts_and_seconds(traced):
     """host_pack once a chunk, emit once for each file's frames in a
-    chunk, the framing once a chunk, straight into its slot."""
+    chunk, the framing once a chunk, straight into its slot, and the
+    assembly once a file."""
     wavs, _, m = traced
     n, c = m.stage_n, m.counters
     pieces = 0
@@ -135,6 +137,7 @@ def test_stage_counts_and_seconds(traced):
     assert n["pack_gather"] == n["rice_count"] == n["rice_pack"] == (
         2 * c["chunks"])
     assert n["emit"] == pieces > c["chunks"]
+    assert n["host_assemble"] == c["files"] == len(wavs)
     s = m.stage_s
     assert sum(s[k] for k in INNER) <= s["host_pack"]
 
@@ -156,7 +159,7 @@ def test_stages_nest_as_encode_wavs():
 
     for name in INNER:
         assert inside(name, "host_pack"), name
-    for name in TOP:   # the four outer stages never nest in one another
+    for name in TOP:   # the five outer stages never nest in one another
         for other in set(TOP) - {name}:
             assert not any(a0 <= a and b <= b0 for a, b in ranges[name]
                            for a0, b0 in ranges[other]), (name, other)

@@ -802,6 +802,58 @@ def test_v1_device_pack_on_a_cd_track(dev):
     assert m.counters["int32_fetch"] == 1
 
 
+def _composed_stream(w, profile) -> bytes:
+    """encode_wav's stream as it was composed before the stream buffer,
+    on the card: encode_chunks' pack_frames outputs, each chunk's frames
+    as bytes (bitio.emit_frames), joined behind the header by
+    serialize_file."""
+    from sela_tpu_torch.codec import encoder
+    from sela_tpu_torch.ref import container
+
+    frames = []
+    encoder.encode_chunks(
+        [w.channels], torch.int16 if w.bits_per_sample <= 16 else torch.int32,
+        profile.frame_size, torch.device("cuda"),
+        encoder.DEFAULT_CHUNK_FRAMES,
+        dict(allow_ms=w.bits_per_sample <= 24, max_order=profile.max_order,
+             rice_k_max=profile.rice_k_max,
+             partition=profile.residue_partition, ms_mode="est"), None,
+        lambda start, fcount, packed, nv: frames.append(
+            encoder.serialize_frames(packed, nv, 0, fcount)))
+    F = -(-w.n_samples // profile.frame_size)
+    return container.serialize_file(container.SelaHeader(
+        w.sample_rate, w.bits_per_sample, w.n_channels, F), frames)
+
+
+@pytest.mark.parametrize("track", ["cd16_v1_180s", "hires24_v2_20s"])
+def test_stream_buffer_streams_are_the_composed_ones_on_card(dev, track):
+    """A 3-minute CD track under v1 and a 20-s 24-bit/96 kHz track under
+    v2: encode_wav, which emits into the thread's stream buffer, gives the
+    composed stream byte for byte; a second encode of the track reuses the
+    buffer (emit_buffer_allocs 0) and gives the same bytes."""
+    import chip_smoke as cs
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.config import BitstreamProfile
+    from sela_tpu_torch.ref.wav import WavData
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    if track == "cd16_v1_180s":
+        w = WavData(44100, 16, cs.make_track(180.0, 44100, 16, seed=0))
+        profile = BitstreamProfile()
+    else:
+        w = WavData(96000, 24, cs.make_track(20.0, 96000, 24, seed=1))
+        profile = BitstreamProfile(residue_partition=4)
+    want = _composed_stream(w, profile)
+    bufs, allocs = [], []
+    for _ in range(2):
+        m = Metrics()
+        bufs.append(encode_wav(w, profile=profile, device="cuda", metrics=m))
+        allocs.append(m.counters["emit_buffer_allocs"])
+        assert m.stage_n["host_assemble"] == 1
+    assert bufs == [want, want]
+    assert allocs[1] == 0
+
+
 def test_packer_launches_on_v1_encode_only(dev):
     """kernels/pack.py::launches rises by 2 a chunk on a v1 encode and by 0
     on a v2 encode and on a decode."""

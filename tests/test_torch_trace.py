@@ -75,10 +75,12 @@ def test_pack_spans_lie_inside_host_pack(threaded):
     assert all(m.stage_n.get(name) for name in SPANS), m.stage_n
     assert sum(m.stage_s[name] for name in SPANS) <= m.stage_s["host_pack"]
     chunks = m.stage_n["host_pack"]
-    # one gather before each block kind's native calls; one emit a chunk
+    # one gather before each block kind's native calls; one emit a chunk;
+    # one assembly of the stream, after the chunks
     assert m.stage_n["pack_gather"] == 2 * chunks
     assert m.stage_n["rice_count"] == m.stage_n["rice_pack"] == 2 * chunks
     assert m.stage_n["emit"] == chunks
+    assert m.stage_n["host_assemble"] == 1
 
 
 def test_threaded_workers_are_timed(threaded):
