@@ -70,6 +70,27 @@ do NOT equal device busy-time):
           Counters: "frames", "chunks"; "int32_wire_chunks" — chunks
           whose residues crossed on the int32 wire, not all fitting
           int16 (0 where none did); "coded_bytes" and "pcm_bytes".
+  play:   decode_stream, and StreamingPlayer, whose producer thread runs
+          it and records its stages (codec/stream.py). One chunk at a
+          time, nothing in flight: "host_parse" — the chunk's scan
+          (decoder.scan), and the trailer after the last frame;
+          "host_unpack" — the chunk's unpack (decoder.unpack) and the
+          dense rows' fill, which nests "rice_unpack" as in decode;
+          "device_dispatch" — the four host-to-device copies and
+          decode_step's launches (on the CPU: the whole decode_step);
+          "device_fetch" — the synchronous copy of the chunk's PCM back;
+          "host_assemble" — the chunk's blocks sliced, one a frame (views
+          of the fetched PCM), before the first is yielded (no stage is
+          open while a block is yielded);
+          "queue_wait" (StreamingPlayer) — each PacketQueue.put that finds
+          the queue full: the producer waiting for the consumer (a put
+          with room takes no span).
+          Counters: "frames" (decoded), "chunks", "blocks" (yielded),
+          "int32_wire_chunks", "coded_bytes" (the header, then each
+          chunk's bytes, then the trailer: the whole stream once it has
+          run to its end) and "pcm_bytes" (each chunk's samples at the
+          stream's depth), as in decode; a player stopped early counts
+          what its producer reached.
 A nested stage's seconds are also counted in its parent's, so stage
 seconds do not add up to the operation's wall time.
 

@@ -948,6 +948,44 @@ def test_stream_decode_on_card(dev):
         np.testing.assert_array_equal(played[:, c], rows[c])
 
 
+def test_traced_player_on_a_cd_track(dev):
+    """A 3-minute CD stream (3,876 frames, 31 chunks of 128) through a
+    StreamingPlayer with a sink on the card: block for block decode_sela's
+    PCM, every stage and counter recorded, and no thread left behind."""
+    import chip_smoke as cs
+    from sela_tpu_torch.codec.decoder import decode_sela
+    from sela_tpu_torch.codec.encoder import encode_wav
+    from sela_tpu_torch.codec.stream import StreamingPlayer
+    from sela_tpu_torch.ref.wav import WavData
+    from sela_tpu_torch.utils.metrics import Metrics
+
+    w = WavData(44100, 16, cs.make_track(180.0, 44100, 16, seed=0))
+    buf = encode_wav(w, device="cuda")
+    want = decode_sela(buf, device="cuda")
+    m = Metrics()
+    player = StreamingPlayer(buf, device="cuda", metrics=m)
+    blocks = list(player)
+    assert not player._thread.is_alive()
+    assert [len(b) for b in blocks] == [2048] * 3875 + [w.n_samples
+                                                        - 3875 * 2048]
+    at = 0
+    for b in blocks:
+        assert b.dtype == np.int32
+        for c in range(2):
+            np.testing.assert_array_equal(b[:, c],
+                                          want.channels[c][at:at + len(b)])
+        at += len(b)
+    c = m.counters
+    assert c["frames"] == c["blocks"] == 3876 and c["chunks"] == 31
+    assert c["int32_wire_chunks"] == 0
+    assert c["coded_bytes"] == len(buf) and c["pcm_bytes"] == w.n_samples * 4
+    assert set(m.stage_s) - {"queue_wait"} == {
+        "host_parse", "host_unpack", "rice_unpack", "device_dispatch",
+        "device_fetch", "host_assemble"}
+    assert m.stage_n["device_fetch"] == 31
+    assert m.stage_n.get("queue_wait", 0) <= 3876   # puts that waited
+
+
 def test_wrapping_stream_decodes_to_the_oracle_on_card(dev):
     """The 16-bit mono clip of tests/test_property.py with byte 27 ^= 5: its
     first subframe becomes order 0 with k_res 15 and its samples leave int16.
